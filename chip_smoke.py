@@ -5,41 +5,56 @@
 
 Needs one CUDA GPU (sm_90a: H100/H200) and nvcc; fails on any other
 host, and fails in a directory holding nothing of the repository but
-this script. Three phases, each of which must pass:
+this script. Phases, each of which must pass (no failure is caught):
 
 1. Build: compiles every CUDA kernel of the port from the sources in
    this checkout (one nvcc per source, in parallel) and prints the GPU's
    name and power limit (nvidia-smi) and the build time.
-2. Kernel vs plain version on the GPU: `spmm_block_ell`'s CUDA kernel
-   against the plain PyTorch version on the same inputs, over B in {8,
-   16, 128}, F in {1, 121, 2048}, fp32 and bf16, row_k None and given
-   (some rows 0), K = 0, and the exact ppi_sota cluster shape. Tolerance
-   max|Δ| <= 1e-5·max(1, max|y_ref|) in fp32 (the two sum in different
-   orders) and 8e-3·max(1, max|y_ref|) in bf16 (the output is rounded
-   once to bf16, ulp 2^-8). Prints each case's error and the kernel's
-   and the plain version's time (CUDA events, after warm-up); at the
-   ppi_sota shape also one torch.bmm on the gathered operands as a
-   library yardstick (timed only; the port never calls it).
-3. Serve ppi_sota (5 layers, 2048 wide) end to end: random seeded
-   params saved with the port's CheckpointManager, then
-   `repro_torch.launch.serve_gcn.main` precomputes the embedding cache
-   and answers 1024 lookups. Checks the kernel launch count (non-empty
-   clusters x 5 propagations), served logits against the host oracle
-   `full_graph_logits` (max|Δ| <= 1e-4·max(1, max|ref|)), and the lazy
-   halo re-embed of an invalidated cluster against its warm value. It
-   also shows where the time goes: one more precompute under
-   torch.profiler (device time by kernel and copy, device idle share)
-   and one 256-id query split into its host gather and device step.
+2. Kernels vs their plain versions on the GPU, same inputs:
+   `spmm_block_ell` over B in {8, 16, 128}, F in {1, 121, 2048}, fp32 and
+   bf16, row_k None and given, K = 0, the ppi_sota serving cluster shape
+   and the training backward's transposed shape (with row_k_t);
+   `spmm_fused_block_ell` over B in {8, 16, 128}, D and F in {1, 121,
+   2048}, fp32 and bf16, row_k None and given, K = 0, and the three
+   ppi_sota training shapes (D 50 → F 2048, 2048 → 2048, 2048 → 121;
+   nrb 3, K 3, B 128). Tolerance max|Δ| <= 1e-5·max(1, max|y_ref|) in
+   fp32 (different summation order) and 8e-3·max(1, max|y_ref|) in bf16
+   (one bf16 rounding of the output). Each case prints the error, kernel
+   ms, plain ms and bound ms (CUDA events after warm-up); the main shapes
+   also time one library call as a yardstick (torch.bmm on the gathered
+   operands; torch.addmm then that bmm for the fused product) — timed
+   only, the port never calls them.
+3. Train ppi_sota (5 layers, 2048 wide, block-ELL batches, fused
+   layers) for 2 epochs through `repro_torch.launch.run_experiment.main`
+   — the main path: 5 fused launches and 5 block-ELL launches (the
+   backward on the transposed tiles) per step, a finite loss that falls
+   from epoch 1 to 2. Then where a step's time goes: host batch build
+   vs device step (medians), and one step under torch.profiler (device
+   time by kernel, idle share).
+4. One-step parity: the same params and batch (dropout 0), `gcn_loss` +
+   backward on the GPU (kernels) against the CPU (plain versions); loss
+   within 1e-4 relative, grads within 1e-4·max(1, max|g_cpu|).
+5. One epoch of the unfused path (`model.fuse_spmm=false`): 10 block-ELL
+   launches per step, none fused.
+6. Serve the checkpoint that phase 3 trained: `serve_gcn.main`
+   precomputes the embedding cache and answers 1024 lookups; launch
+   count (non-empty clusters x 5 propagations), served logits against
+   the host oracle `full_graph_logits` (max|Δ| <= 1e-4·max(1,
+   max|ref|)), the lazy halo re-embed of an invalidated cluster, and
+   where the serving time goes (torch.profiler; host gather vs device
+   step of a 256-id query).
 
+Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
-per-kernel numbers (`{"kernels": [...]}`), and
-`{"ok": true, "device": {...}}`. Full per-case results also go to
-chiprun_out/chip_smoke.json. Datasets, partitions, checkpoints and the
-serving cache live in a temporary directory that is removed at the end.
+per-kernel numbers (`{"kernels": [...]}`), and `{"ok": true, "device":
+{...}}`. Full per-case results also go to chiprun_out/chip_smoke.json.
+Datasets, partitions, checkpoints and the serving cache live in a
+temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -56,7 +71,14 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 PPI_SHAPE = dict(nrb=3, K=110, B=128, ncb=110, F=2048)
+# the training step's shapes at ppi_sota: node_cap 384 → nrb = ncb = 3,
+# K = cap/B = 3 slots, B 128; layer widths 50 → 2048 → ... → 121
+TRAIN_BWD_SHAPE = dict(nrb=3, K=3, B=128, ncb=3, F=2048)
+FUSED_TRAIN_SHAPES = ((50, 2048), (2048, 2048), (2048, 121))
+FUSED_MAIN = (2048, 2048)
 SERVE_TOL = 1e-4
+STEP_TOL = 1e-4
+TRAIN_SETS = ["batch.sparse_adj=true", "model.fuse_spmm=true"]
 
 
 def _smi() -> str:
@@ -83,7 +105,9 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
 def _case_inputs(nrb, K, B, ncb, F, dtype, row_k_mode, seed):
     """Block-ELL operands in the format the host builders emit: slots
     past each row's live count hold zero tiles pointing at column-block
-    0. row_k_mode: None (all K live, row_k not passed), "given"."""
+    0. row_k_mode: None (row_k not passed), "given" (random live counts,
+    row-block 0 empty), "full" (row_k passed, every slot live — what a
+    training batch at ppi_sota carries)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     blocks = torch.randn(nrb, K, B, B, generator=g)
@@ -98,28 +122,42 @@ def _case_inputs(nrb, K, B, ncb, F, dtype, row_k_mode, seed):
             blocks[i, int(live[i]):] = 0
             cols[i, int(live[i]):] = 0
         row_k = live.cuda()
+    elif row_k_mode == "full":
+        row_k = torch.full((nrb,), K, dtype=torch.int32).cuda()
     return (blocks.to(dtype).cuda(), cols.cuda(), x.to(dtype).cuda(),
             row_k)
 
 
-def _bound_ms(blocks, cols, x, row_k, y):
+def _bound(flops: float, tensors, dtype) -> tuple:
     """(ms, what bounds it): the least time on the card for this call,
-    the larger of the bytes (each input read once, the output written
-    once) over the peak memory rate and the live tiles' FLOPs over the
-    dtype's peak rate."""
-    nrb, K, B, _ = blocks.shape
-    live = (int(row_k.sum()) if row_k is not None else nrb * K)
-    flops = 2.0 * live * B * B * x.shape[1]
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (blocks, cols, x, y)
-                 + ((row_k,) if row_k is not None else ()))
-    peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
+    the larger of the bytes (each input read once, each output written
+    once) over the peak memory rate and the FLOPs the function needs
+    over the dtype's peak rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _live_slots(blocks, row_k) -> int:
+    nrb, K = blocks.shape[:2]
+    return int(row_k.clamp(0, K).sum()) if row_k is not None else nrb * K
+
+
+def _check_case(name, row, err, scale, dname):
+    ok = err <= TOL[dname] * scale
+    row.update(max_abs_err=err, max_abs_ref=scale, tol=TOL[dname] * scale,
+               ok=ok)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{row}")
+
+
 def phase_kernels(results: dict) -> dict:
+    """The block-ELL SpMM against its plain version; returns the rows of
+    the serving cluster shape (fp32) and the training backward shape."""
     import torch
     from repro_torch.kernels import block_spmm
     from repro_torch.kernels.ref import spmm_block_ell_ref
@@ -132,12 +170,15 @@ def phase_kernels(results: dict) -> dict:
                 for mode in (None, "given"):
                     cases.append((nrb, K, B, ncb, F, dtype, mode))
         cases.append((4, 0, B, 3, 121, torch.float32, None))     # K = 0
-    p = PPI_SHAPE
+    p, t = PPI_SHAPE, TRAIN_BWD_SHAPE
     for dtype, mode in ((torch.float32, None), (torch.bfloat16, None),
                         (torch.float32, "given")):
         cases.append((p["nrb"], p["K"], p["B"], p["ncb"], p["F"], dtype,
                       mode))
-    main_case = None
+    for F in (2048, 121):                # the backward's g̃ = Âᵀḡ widths
+        cases.append((t["nrb"], t["K"], t["B"], t["ncb"], F,
+                      torch.float32, "full"))
+    main = {}
     for n, (nrb, K, B, ncb, F, dtype, mode) in enumerate(cases):
         blocks, cols, x, row_k = _case_inputs(nrb, K, B, ncb, F, dtype,
                                               mode, seed=n)
@@ -149,43 +190,324 @@ def phase_kernels(results: dict) -> dict:
         scale = max(1.0, float(ref.float().abs().max())) if y.numel() \
             else 1.0
         dname = str(dtype).replace("torch.", "")
-        ok = err <= TOL[dname] * scale
         is_ppi = (nrb, K, B, ncb, F) == tuple(p.values())
-        reps = 10 if is_ppi else 5
-        if K:
-            ms = _time_ms(lambda: block_spmm._launch(blocks, cols, x, row_k),
-                          reps)
-        else:
-            ms = None                    # the wrapper launches nothing
+        is_bwd = mode == "full"
+        reps = 10 if (is_ppi or is_bwd) else 5
+        ms = (_time_ms(lambda: block_spmm._launch(blocks, cols, x, row_k),
+                       reps) if K else None)  # K = 0 launches nothing
         plain_ms = _time_ms(lambda: spmm_block_ell_ref(blocks, cols, x),
                             reps)
         row = dict(nrb=nrb, K=K, B=B, ncb=ncb, F=F, dtype=dname,
-                   row_k=mode, max_abs_err=err, max_abs_ref=scale,
-                   tol=TOL[dname] * scale, ok=ok, ms=ms, plain_ms=plain_ms)
-        row["bound_ms"], row["bound_by"] = _bound_ms(blocks, cols, x, row_k,
-                                                     y)
-        if is_ppi:
+                   row_k=mode, ms=ms, plain_ms=plain_ms)
+        flops = 2.0 * _live_slots(blocks, row_k) * B * B * F
+        row["bound_ms"], row["bound_by"] = _bound(
+            flops, (blocks, cols, x, y, row_k), dtype)
+        if is_ppi or is_bwd:
             gathered = x.reshape(-1, B, F)[cols.long()].reshape(
                 nrb, K * B, F)
             a = blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B)
             row["library_ms"] = _time_ms(lambda: torch.bmm(a, gathered),
                                          reps)
             del gathered, a
-            if dtype == torch.float32 and mode is None:
-                main_case = row          # the shape and call serving makes
+            if is_ppi and dtype == torch.float32 and mode is None:
+                main["serve"] = row      # the shape and call serving makes
+            if is_bwd and F == 2048:
+                main["train_bwd"] = row  # the hidden layers' backward
+        _check_case("block_ell_spmm", row, err, scale, dname)
         results["kernel_cases"].append(row)
-        print(f"[kernels] B={B:>3} F={F:>4} nrb={nrb} K={K:>3} {dname:>8} "
-              f"row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
+        print(f"[kernels] spmm B={B:>3} F={F:>4} nrb={nrb} K={K:>3} "
+              f"{dname:>8} row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
               f"(tol {TOL[dname] * scale:.3e})  "
               f"kernel {'-' if ms is None else f'{ms:.4f}'} ms  "
               f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
-              + (f"  bmm {row['library_ms']:.4f} ms" if is_ppi else "")
-              + ("" if ok else "  FAIL"))
-        if not ok:
-            raise AssertionError(f"kernel disagrees with the plain "
-                                 f"version: {row}")
+              + (f"  bmm {row['library_ms']:.4f} ms"
+                 if "library_ms" in row else ""))
         del blocks, cols, x, y, ref
-    return main_case
+    return main
+
+
+def _fused_inputs(nrb, K, B, ncb, D, F, dtype, mode, seed):
+    import torch
+    blocks, cols, _, row_k = _case_inputs(nrb, K, B, ncb, 1, dtype, mode,
+                                          seed)
+    g = torch.Generator().manual_seed(seed + 7)
+    x = torch.randn(ncb * B, D, generator=g).to(dtype).cuda()
+    w = (torch.randn(D, F, generator=g) / max(1, D) ** 0.5).to(dtype).cuda()
+    b = torch.randn(F, generator=g).cuda()
+    return blocks, cols, x, w, b, row_k
+
+
+def phase_fused(results: dict) -> dict:
+    """The fused Â·(XW + b) kernel against its plain version; returns the
+    row of the ppi_sota hidden layer (2048 → 2048, fp32)."""
+    import torch
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels.ref import spmm_fused_ref
+
+    cases = []
+    for B in (8, 16, 128):
+        nrb, K, ncb = (3, 4, 6) if B == 128 else (5, 6, 9)
+        for D in (1, 121, 2048):
+            for F in (1, 121, 2048):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for mode in (None, "given"):
+                        cases.append((nrb, K, B, ncb, D, F, dtype, mode))
+        cases.append((4, 0, B, 3, 121, 121, torch.float32, None))  # K = 0
+    t = TRAIN_BWD_SHAPE
+    for D, F in FUSED_TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((t["nrb"], t["K"], t["B"], t["ncb"], D, F, dtype,
+                          "full"))
+    main = None
+    for n, (nrb, K, B, ncb, D, F, dtype, mode) in enumerate(cases):
+        blocks, cols, x, w, b, row_k = _fused_inputs(nrb, K, B, ncb, D, F,
+                                                     dtype, mode, seed=n)
+        y = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b,
+                                            row_k=row_k)
+        torch.cuda.synchronize()
+        ref = spmm_fused_ref(blocks, cols, x, w, b)
+        err = float((y.float() - ref.float()).abs().max()) if y.numel() \
+            else 0.0
+        scale = max(1.0, float(ref.float().abs().max())) if y.numel() \
+            else 1.0
+        dname = str(dtype).replace("torch.", "")
+        is_train = mode == "full"
+        reps = 10 if is_train else 3
+        ms = (_time_ms(lambda: block_spmm._launch_fused(blocks, cols, x, w,
+                                                        b, row_k), reps)
+              if K else None)
+        plain_ms = _time_ms(lambda: spmm_fused_ref(blocks, cols, x, w, b),
+                            reps)
+        live = _live_slots(blocks, row_k)
+        # the function: XW over every row of x once, then the live tiles;
+        # the kernel recomputes XW per live slot, as the TPU kernel does
+        fn_flops = 2.0 * x.shape[0] * D * F + 2.0 * live * B * B * F
+        kernel_flops = live * (2.0 * B * D * F + 2.0 * B * B * F)
+        row = dict(nrb=nrb, K=K, B=B, ncb=ncb, D=D, F=F, dtype=dname,
+                   row_k=mode, ms=ms, plain_ms=plain_ms,
+                   function_flops=fn_flops, kernel_flops=kernel_flops)
+        row["bound_ms"], row["bound_by"] = _bound(
+            fn_flops, (blocks, cols, x, w, b, y, row_k), dtype)
+        if is_train and (D, F) == FUSED_MAIN:
+            def library():
+                xw = torch.addmm(b.to(x.dtype), x, w)
+                gathered = xw.reshape(-1, B, F)[cols.long()].reshape(
+                    nrb, K * B, F)
+                return torch.bmm(
+                    blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B),
+                    gathered)
+            row["library_ms"] = _time_ms(library, reps)
+            if dtype == torch.float32:
+                main = row
+        _check_case("block_ell_spmm_fused", row, err, scale, dname)
+        results["fused_cases"].append(row)
+        print(f"[fused] B={B:>3} D={D:>4} F={F:>4} nrb={nrb} K={K} "
+              f"{dname:>8} row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
+              f"(tol {TOL[dname] * scale:.3e})  "
+              f"kernel {'-' if ms is None else f'{ms:.4f}'} ms  "
+              f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
+              + (f"  addmm+bmm {row['library_ms']:.4f} ms"
+                 if "library_ms" in row else ""))
+        del blocks, cols, x, w, b, y, ref
+    return main
+
+
+def _train_argv(work: pathlib.Path, name: str, sets) -> list:
+    argv = ["--preset", "ppi_sota", "--results-dir", str(work / name)]
+    for s in sets:
+        argv += ["--set", s]
+    return argv
+
+
+def phase_train(results: dict, work: pathlib.Path) -> dict:
+    """Train ppi_sota 2 epochs through the CLI — the main path."""
+    from repro_torch.kernels import block_spmm
+    from repro_torch.launch import run_experiment
+
+    ck = work / "train_ck"
+    argv = _train_argv(work, "train", TRAIN_SETS + [
+        "run.epochs=2", "run.eval_every=2", f"run.checkpoint_dir={ck}"])
+    print(f"[train] run_experiment {' '.join(argv)}")
+    t0 = time.perf_counter()
+    # --- the main path: every launch count starts at 0 here -------------
+    block_spmm.LAUNCHES = 0
+    block_spmm.LAUNCHES_FUSED = 0
+    rc = run_experiment.main(argv)
+    launches = {"block_ell_spmm": block_spmm.LAUNCHES,
+                "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+    # ---------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run_experiment returned {rc}")
+    metrics = json.loads((work / "train" / "ppi_sota" / "metrics.json")
+                         .read_text())
+    steps = metrics["global_step"]
+    losses = [h["loss"] for h in metrics["history"]]
+    print(f"[train] {steps} steps in {wall:.2f} s (incl. data, partition, "
+          f"eval); epoch losses {losses}; final "
+          f"{metrics['final']['split']} micro-F1 "
+          f"{metrics['final']['score']:.4f}")
+    print(f"[train] launches: fused {launches['block_ell_spmm_fused']}, "
+          f"block_ell_spmm {launches['block_ell_spmm']} (expected 5 x "
+          f"{steps} each)")
+    results["train"] = dict(steps=steps, wall_s=wall, launches=launches,
+                            history=metrics["history"],
+                            final=metrics["final"],
+                            seconds=metrics["seconds"])
+    if steps != 100 or launches["block_ell_spmm_fused"] != 5 * steps \
+            or launches["block_ell_spmm"] != 5 * steps:
+        raise AssertionError(f"expected 100 steps with 5 launches of each "
+                             f"kernel per step: {steps} steps, {launches}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[1] < losses[0]:
+        raise AssertionError(f"loss not finite or not falling: {losses}")
+    return dict(launches=launches, checkpoint=ck)
+
+
+def _step_parts(spec_sets):
+    from repro_torch.core.experiment import build_experiment
+    from repro_torch.launch.run_experiment import load_spec
+    import argparse
+    args = argparse.Namespace(preset="ppi_sota", spec=None, set=spec_sets)
+    return build_experiment(load_spec(args), device="cuda")
+
+
+def phase_step_profile(results: dict) -> None:
+    """Where a training step's time goes: host batch build, the
+    payload's copy to the device, and the step (medians over an epoch's
+    first 20 steps, each part synchronised), and one step under
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.batching import batch_to_device
+
+    exp = _step_parts(TRAIN_SETS)
+    backend, engine = exp.engine.backend, exp.engine
+    state = engine.init_state()
+    build, copy, step = [], [], []
+    it = iter(exp.batcher.epoch(0))
+    for _ in range(20):
+        t0 = time.perf_counter()
+        payload = next(it).astuple()
+        build.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = batch_to_device(payload, "cuda")
+        torch.cuda.synchronize()
+        copy.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        state, loss, _ = backend.step(state, payload)
+        torch.cuda.synchronize()
+        step.append(time.perf_counter() - t0)
+    payload = batch_to_device(next(it).astuple(), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = backend.step(state, payload)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
+    results["train_step"] = dict(
+        host_build_ms=float(np.median(build)) * 1e3,
+        copy_ms=float(np.median(copy)) * 1e3,
+        step_ms=float(np.median(step)) * 1e3,
+        profiled_step_wall_ms=wall * 1e3, device_busy_ms=busy,
+        idle_share=1.0 - busy / (wall * 1e3),
+        top_device_ms={k[:80]: v for k, v in top})
+    print(f"[step] host batch build {np.median(build) * 1e3:.3f} ms, "
+          f"copy to device {np.median(copy) * 1e3:.3f} ms, step "
+          f"{np.median(step) * 1e3:.3f} ms (medians of 20, synchronised)")
+    print(f"[step] profiled step {wall * 1e3:.3f} ms wall, device busy "
+          f"{busy:.3f} ms, idle share {1.0 - busy / (wall * 1e3):.3f}")
+    for name, ms in top:
+        print(f"[step]   {ms:8.4f} ms  {name[:90]}")
+
+
+def phase_step_parity(results: dict) -> None:
+    """One gcn_loss + backward, same params and batch (dropout 0), on the
+    GPU (kernels) and on the CPU (plain versions)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.batching import batch_to_device
+    from repro_torch.core.gcn import gcn_loss, init_params
+    from repro_torch.kernels import block_spmm
+    from repro_torch.nn.tree import tree_leaves, tree_map
+
+    exp = _step_parts(TRAIN_SETS)
+    cfg = dataclasses.replace(exp.cfg, dropout=0.0)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(3),
+                         device="cpu")
+    host = next(iter(exp.batcher.epoch(0))).astuple()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        before = (block_spmm.LAUNCHES, block_spmm.LAUNCHES_FUSED)
+        loss, _ = gcn_loss(p, batch_to_device(host, dev), cfg, train=True)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched = (block_spmm.LAUNCHES - before[0],
+                    block_spmm.LAUNCHES_FUSED - before[1])
+        out[dev] = (float(loss.detach()),
+                    [g.detach().float().cpu() for g in grads],
+                    launched)
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst = 0.0
+    for gg, gc in zip(out["cuda"][1], out["cpu"][1]):
+        bound = STEP_TOL * max(1.0, float(gc.abs().max()))
+        err = float((gg - gc).abs().max())
+        worst = max(worst, err / bound)
+    results["step_parity"] = dict(loss_gpu=out["cuda"][0],
+                                  loss_cpu=out["cpu"][0],
+                                  loss_rel_err=loss_err,
+                                  worst_grad_err_over_bound=worst,
+                                  launches_gpu=out["cuda"][2],
+                                  launches_cpu=out["cpu"][2])
+    print(f"[parity] one step GPU vs CPU: loss {out['cuda'][0]:.6f} vs "
+          f"{out['cpu'][0]:.6f} (rel {loss_err:.3e}, bound {STEP_TOL}); "
+          f"worst grad err / bound {worst:.3f}; launches GPU "
+          f"{out['cuda'][2]}, CPU {out['cpu'][2]}")
+    if not loss_err <= STEP_TOL or not worst <= 1.0 \
+            or out["cuda"][2] != (5, 5) or out["cpu"][2] != (0, 0):
+        raise AssertionError(f"GPU step disagrees with the CPU step: "
+                             f"{results['step_parity']}")
+
+
+def phase_unfused(results: dict, work: pathlib.Path) -> None:
+    """One epoch with model.fuse_spmm=false: matmul, then the block-ELL
+    SpMM forward and backward."""
+    from repro_torch.kernels import block_spmm
+    from repro_torch.launch import run_experiment
+
+    argv = _train_argv(work, "unfused", ["batch.sparse_adj=true",
+                                         "model.fuse_spmm=false",
+                                         "run.epochs=1", "run.eval_every=0"])
+    block_spmm.LAUNCHES = 0
+    block_spmm.LAUNCHES_FUSED = 0
+    rc = run_experiment.main(argv)
+    launches = (block_spmm.LAUNCHES, block_spmm.LAUNCHES_FUSED)
+    metrics = json.loads((work / "unfused" / "ppi_sota" / "metrics.json")
+                         .read_text())
+    steps = metrics["global_step"]
+    results["unfused"] = dict(steps=steps, launches=launches,
+                              history=metrics["history"])
+    print(f"[unfused] {steps} steps, loss {metrics['history'][0]['loss']:.4f}"
+          f", launches block_ell_spmm {launches[0]}, fused {launches[1]} "
+          f"(expected 10 x {steps}, 0)")
+    if rc != 0 or launches != (10 * steps, 0) or \
+            not math.isfinite(metrics["history"][0]["loss"]):
+        raise AssertionError(f"unfused epoch: rc {rc}, launches "
+                             f"{launches}, {steps} steps")
 
 
 def _breakdown(engine, results: dict) -> None:
@@ -242,12 +564,12 @@ def _breakdown(engine, results: dict) -> None:
           f"{np.median(step) * 1e3:.3f} ms (medians of 5)")
 
 
-def phase_serve(results: dict, work: pathlib.Path) -> int:
+def phase_serve(results: dict, work: pathlib.Path,
+                ck: pathlib.Path) -> int:
+    """Serve the checkpoint in `ck` (the one phase 3 trained)."""
     import numpy as np
-    import torch
     from repro_torch.core.experiment import (build_gcn_config, build_graph,
                                              build_partition, preset)
-    from repro_torch.core.gcn import init_gcn, params_to_numpy
     from repro_torch.core.trainer import full_graph_logits
     from repro_torch.kernels import block_spmm
     from repro_torch.launch import serve_gcn
@@ -261,15 +583,11 @@ def phase_serve(results: dict, work: pathlib.Path) -> int:
     nonempty = int((np.bincount(parts, minlength=spec.partition.num_parts)
                     > 0).sum())
     propagations = cfg.num_layers + int(cfg.precompute_ax)
-    gcn = init_gcn(cfg, generator=torch.Generator().manual_seed(0),
-                   device="cuda")
-    ck = work / "checkpoints"
-    CheckpointManager(str(ck)).save(0, {"params": params_to_numpy(gcn)})
-    del gcn
+    step = CheckpointManager(str(ck)).latest_valid_step()
     bench_path = work / "serve_bench.json"
     print(f"[serve] ppi_sota: {graph.num_nodes} nodes, {graph.num_edges} "
           f"edge slots, {nonempty} non-empty clusters, {cfg.num_layers} "
-          f"layers x {cfg.hidden_dim} wide")
+          f"layers x {cfg.hidden_dim} wide; trained checkpoint step {step}")
 
     # --- the main path: every launch count starts at 0 here -------------
     block_spmm.LAUNCHES = 0
@@ -369,14 +687,20 @@ def main() -> int:
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels built in {build_s:.2f} s")
 
-    results = {"gpu": smi, "build_s": build_s, "kernel_cases": []}
-    main_case = phase_kernels(results)
+    results = {"gpu": smi, "build_s": build_s, "kernel_cases": [],
+               "fused_cases": []}
+    spmm_rows = phase_kernels(results)
+    fused_row = phase_fused(results)
 
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke-"))
     old_cache = os.environ.get("REPRO_DATASETS_CACHE")
     os.environ["REPRO_DATASETS_CACHE"] = str(work / "datasets")
     try:
-        launches = phase_serve(results, work)
+        trained = phase_train(results, work)
+        phase_step_profile(results)
+        phase_step_parity(results)
+        phase_unfused(results, work)
+        serve_launches = phase_serve(results, work, trained["checkpoint"])
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
@@ -384,21 +708,35 @@ def main() -> int:
             os.environ["REPRO_DATASETS_CACHE"] = old_cache
         shutil.rmtree(work, ignore_errors=True)
 
+    def numbers(row):
+        return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+
+    shape_keys = ("nrb", "K", "B", "ncb", "D", "F", "dtype", "row_k")
+    serve, bwd = spmm_rows["serve"], spmm_rows["train_bwd"]
+    train_spmm = trained["launches"]["block_ell_spmm"]
     kernels = [{
         "name": "block_ell_spmm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_ell_spmm.cu",
         "replaces": "src/repro/kernels/block_spmm.py:103",
         "also_replaces": "src/repro/kernels/block_spmm.py:132",
-        "launches": launches,
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": {k: main_case[k] for k in ("nrb", "K", "B", "ncb", "F",
-                                            "dtype")},
+        "launches": train_spmm + serve_launches,
+        "launches_by_path": {"train": train_spmm, "serve": serve_launches},
+        **numbers(serve),
+        "shape": {k: serve[k] for k in shape_keys if k in serve},
+        "train_bwd": dict(numbers(bwd), shape={k: bwd[k] for k in shape_keys
+                                               if k in bwd}),
+    }, {
+        "name": "block_ell_spmm_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_ell_spmm_fused.cu",
+        "replaces": "src/repro/kernels/block_spmm.py:254",
+        "launches": trained["launches"]["block_ell_spmm_fused"],
+        **numbers(fused_row),
+        "function_flops": fused_row["function_flops"],
+        "kernel_flops": fused_row["kernel_flops"],
+        "shape": {k: fused_row[k] for k in shape_keys if k in fused_row},
     }]
     results["kernels"] = kernels
     out = ROOT / "chiprun_out"

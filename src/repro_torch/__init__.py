@@ -7,6 +7,9 @@ Pallas TPU kernel on a ported path is a hand-written CUDA kernel for
 Hopper (sm_90a) under `kernels/csrc/`, with a plain PyTorch version
 beside it that CPU tensors take.
 
-Ported so far: the GCN serving path (`serve/`, `launch/serve_gcn.py`)
-and the host stages it needs. Training comes in a later slice.
+Ported so far: single-device Cluster-GCN training (`core/engine.py`,
+`launch/run_experiment.py`) and the GCN serving path (`serve/`,
+`launch/serve_gcn.py`), with the host stages they need. The GraphSAINT
+samplers, data parallelism, the baselines and the LM stack come in
+later slices.
 """

@@ -3,10 +3,14 @@
 The spec dataclasses are copied field for field — same names, defaults
 and `doc` metadata — so any spec JSON the reference writes round-trips
 through `ExperimentSpec.from_json` here unchanged, and one spec file
-drives both packages. This slice materializes what serving needs from a
-spec: the graph (`build_graph`), its partition (`build_partition`) and
-the model config (`build_gcn_config`). The training builders (batcher,
-optimizer, engine) come with the training slice.
+drives both packages. The builders materialize a spec: the graph
+(`build_graph`), its partition (`build_partition`), the cluster batcher
+(`build_batcher`), the model config (`build_gcn_config`), the optimizer
+(`build_optimizer`), the hook stack (`build_hooks`) and the whole run
+(`build_experiment` → `Experiment` with its Engine). Runs are single
+device: the data-parallel mesh (`execution.data_shards`) and the
+GraphSAINT samplers (`batch.sampler="saint_*"`) are later slices of the
+port and raise when asked for.
 
 Preset registry: `preset("ppi"|"ppi_sota"|"ppi_tiny"|...)` returns a
 fresh spec from `repro_torch.configs.{ppi,reddit,amazon2m}`.
@@ -19,10 +23,17 @@ import importlib
 import json
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
+
+from repro_torch.core.batching import ClusterBatcher, Sampler
+from repro_torch.core.engine import (CheckpointHook, Engine, EvalHook,
+                                     LoggingHook, PreemptionHook,
+                                     SingleDeviceBackend, TrainResult)
 from repro_torch.core.gcn import GCNConfig
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.generators import make_dataset
 from repro_torch.graph.partition import partition_graph
+from repro_torch.nn.optim import Optimizer, adamw, sgd
 
 _NORMS = ("eq1", "eq9", "eq10", "eq11")
 _PARTITION_METHODS = ("metis", "cluster", "random")
@@ -484,10 +495,12 @@ def validate(spec: ExperimentSpec) -> ExperimentSpec:
     df = spec.run.divergence_factor
     check(df is None or df > 1.0, "run.divergence_factor",
           "must be None or > 1")
-    # the full FaultPlan check comes with the port of runtime/faults.py;
-    # serving never injects faults, so only the plan's shape is checked
-    check(spec.run.faults is None or isinstance(spec.run.faults, dict),
-          "run.faults", "must be None or a fault-plan dict")
+    if spec.run.faults is not None:
+        from repro_torch.runtime.faults import FaultPlan
+        try:
+            FaultPlan.from_dict(spec.run.faults)
+        except (ValueError, TypeError) as e:
+            raise ValueError(f"spec.run.faults: {e}") from e
     return spec
 
 
@@ -534,6 +547,128 @@ def build_gcn_config(spec: ExperimentSpec, graph: CSRGraph) -> GCNConfig:
         loss_scaling=m.loss_scaling, loss_scale=m.loss_scale,
         remat=m.remat, remat_chunk=m.remat_chunk,
         fuse_spmm=m.fuse_spmm)
+
+
+def build_batcher(spec: ExperimentSpec, graph: CSRGraph,
+                  parts: Optional[np.ndarray]) -> Sampler:
+    """BatchSpec → a ClusterBatcher over `parts` (batch.sampler=
+    "cluster"). The GraphSAINT samplers are a later slice of the port."""
+    b = spec.batch
+    if b.sampler != "cluster":
+        raise NotImplementedError(
+            f"batch.sampler={b.sampler!r}: the GraphSAINT samplers are not "
+            f"ported yet (a later slice of the port); use 'cluster'")
+    if parts is None:
+        raise ValueError("batch.sampler='cluster' needs a partition")
+    return ClusterBatcher(graph, parts,
+                          clusters_per_batch=b.clusters_per_batch,
+                          norm=b.norm, diag_lambda=b.diag_lambda,
+                          node_cap=b.node_cap,
+                          pad_multiple=b.pad_multiple, seed=b.seed,
+                          drop_overflow=b.drop_overflow,
+                          sparse_adj=b.sparse_adj,
+                          block_size=b.block_size, k_slots=b.k_slots,
+                          precompute_ax=spec.model.precompute_ax,
+                          reuse_tile_buffers=b.reuse_tile_buffers)
+
+
+def build_optimizer(spec: ExperimentSpec) -> Optimizer:
+    o = spec.optim
+    if o.name == "adamw":
+        return adamw(o.lr, b1=o.b1, b2=o.b2, eps=o.eps,
+                     weight_decay=o.weight_decay, clip_norm=o.clip_norm)
+    if o.name == "sgd":
+        return sgd(o.lr, momentum=o.momentum, clip_norm=o.clip_norm)
+    raise ValueError(f"unknown optimizer {o.name!r}")
+
+
+def build_hooks(spec: ExperimentSpec, graph: CSRGraph, cfg: GCNConfig,
+                checkpoint=None) -> List:
+    """The standard hook stack for a spec-driven run, in firing order:
+    eval first (so val_score lands in the record before it is
+    checkpointed/logged), then checkpoint cadence + preemption, then
+    logging."""
+    hooks: List = []
+    if spec.run.eval_every:
+        hooks.append(EvalHook(graph, cfg, every=spec.run.eval_every,
+                              split=spec.run.eval_split,
+                              norm=spec.batch.norm,
+                              diag_lambda=spec.batch.diag_lambda))
+    if checkpoint is not None:
+        hooks.append(CheckpointHook(every=spec.run.checkpoint_every))
+        hooks.append(PreemptionHook())
+    if spec.run.verbose:
+        hooks.append(LoggingHook())
+    return hooks
+
+
+@dataclasses.dataclass
+class Experiment:
+    """Everything `build_experiment` materialized from one spec."""
+    spec: ExperimentSpec
+    graph: CSRGraph
+    parts: Optional[np.ndarray]
+    partition_stats: Any
+    batcher: Sampler
+    cfg: GCNConfig
+    opt: Optimizer
+    engine: Engine
+
+    def fit(self, resume: bool = False) -> TrainResult:
+        return self.engine.fit(resume=resume)
+
+
+def build_experiment(spec: ExperimentSpec, *,
+                     graph: Optional[CSRGraph] = None, device="cuda",
+                     extra_hooks: Sequence = ()) -> Experiment:
+    """Materialize the full run: dataset → partition → batcher → model
+    config → optimizer → backend → hooked Engine, on `device` ("cuda" by
+    default; raises without a GPU unless "cpu" is given). Everything is
+    seeded by the spec, so two builds of the same spec on one device
+    train identically. `graph` can be injected (tests, pre-loaded data);
+    `extra_hooks` append after the standard stack."""
+    validate(spec)
+    if spec.execution.data_shards is not None:
+        raise NotImplementedError(
+            "execution.data_shards: data-parallel training is not ported "
+            "yet (ROADMAP slice A4); leave it None for one device")
+    from repro_torch.device import resolve_device
+    resolve_device(device)            # fail before building anything
+    fault_plan = None
+    if spec.run.faults is not None:
+        from repro_torch.runtime.faults import FaultPlan
+        fault_plan = FaultPlan.from_dict(spec.run.faults)
+    if graph is None:
+        graph = build_graph(spec)
+    parts, stats = build_partition(spec, graph)
+    batcher = build_batcher(spec, graph, parts)
+    cfg = build_gcn_config(spec, graph)
+    opt = build_optimizer(spec)
+    backend = SingleDeviceBackend(cfg, opt, device=device)
+    checkpoint = None
+    if spec.run.checkpoint_dir:
+        from repro_torch.runtime.checkpoint import CheckpointManager
+        checkpoint = CheckpointManager(spec.run.checkpoint_dir,
+                                       keep=spec.run.checkpoint_keep,
+                                       async_save=True)
+    hooks = build_hooks(spec, graph, cfg, checkpoint) + list(extra_hooks)
+    engine = Engine(batcher, cfg, backend, epochs=spec.run.epochs,
+                    seed=spec.run.seed, prefetch=spec.execution.prefetch,
+                    hooks=hooks, checkpoint=checkpoint,
+                    fault_plan=fault_plan,
+                    max_consecutive_skipped=spec.run.max_consecutive_skipped,
+                    divergence_factor=spec.run.divergence_factor,
+                    prefetch_timeout=spec.execution.prefetch_timeout_s)
+    return Experiment(spec=spec, graph=graph, parts=parts,
+                      partition_stats=stats, batcher=batcher, cfg=cfg,
+                      opt=opt, engine=engine)
+
+
+def run_experiment(spec: ExperimentSpec, *, resume: bool = False,
+                   **build_kw):
+    """build + fit in one call; returns (Experiment, TrainResult)."""
+    exp = build_experiment(spec, **build_kw)
+    return exp, exp.fit(resume=resume)
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,161 @@
+"""Async cluster-batch prefetch: a bounded-queue background producer
+with a SUPERVISED consumer — the port of `repro.core.prefetch`.
+
+Cluster-GCN batch construction is host work (subgraph extraction,
+normalization, block-ELL tiling — GraphSAINT-style samplers hit the same
+wall): run synchronously it serializes with the device step and caps
+training throughput at host speed. `prefetch_iter` moves the producer to
+a background thread with a bounded queue (double buffering at size=2),
+so building batch t+1 — and optionally its H2D transfer — overlaps the
+device step on batch t.
+
+Determinism: a single producer thread consumes the source iterator in
+order and the queue is FIFO, so the consumer sees EXACTLY the
+synchronous sequence — same batches, same order, bitwise-identical
+training.
+
+Supervision: the consumer never blocks forever. `q.get` runs on a short
+timeout loop; on every empty poll it checks (a) `worker.is_alive()` — a
+producer that died without posting its _DONE/_ERR envelope (segfaulting
+C extension, injected prefetch.producer_crash) raises a diagnosable
+`PrefetchError` within `poll_interval` seconds instead of hanging CI
+for hours — and (b) a `HeartbeatMonitor` the producer beats per item:
+an alive-but-silent producer (deadlocked source, injected
+prefetch.producer_hang) raises after `hang_timeout` seconds of
+silence. For crashes, an optional one-shot `rebuild(consumed)` hook
+restarts the producer from a fresh source positioned after the
+`consumed` items already yielded — the Engine wires it to the
+samplers' `epoch(e, start_step=k)` seam, so the epoch streams being
+pure functions of (seed, epoch) makes the rebuilt tail exact.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterable, Iterator, Optional, TypeVar
+
+from repro_torch.runtime import faults
+from repro_torch.runtime.resilience import HeartbeatMonitor
+
+T = TypeVar("T")
+
+_ITEM, _DONE, _ERR = 0, 1, 2
+
+
+class PrefetchError(RuntimeError):
+    """The prefetch producer failed in a way the source's own exception
+    path cannot report (died silently, or went silent while alive).
+    The message names the failure mode; `site` carries it
+    programmatically."""
+
+    def __init__(self, site: str, detail: str):
+        self.site = site
+        super().__init__(f"prefetch producer failure [{site}]: {detail}")
+
+
+def prefetch_iter(src: Iterable[T], size: int = 2,
+                  transfer: Optional[Callable[[T], T]] = None, *,
+                  poll_interval: float = 0.5,
+                  hang_timeout: float = 600.0,
+                  rebuild: Optional[Callable[[int], Iterable[T]]] = None
+                  ) -> Iterator[T]:
+    """Yield items of `src` in order, produced up to `size` items ahead
+    by a daemon thread. `transfer` (the Engine passes the copy of a
+    payload to the device, `core.batching.batch_to_device`) runs in the
+    producer thread, so host→device copies also leave the critical path.
+
+    size <= 0 degrades to a synchronous passthrough (still applying
+    `transfer`), which keeps call sites branch-free. Early exit (break /
+    generator close) signals the producer to stop promptly; exceptions
+    raised by the source re-raise at the consumer's next pull.
+
+    `poll_interval` bounds how long a silently-dead producer goes
+    unnoticed; `hang_timeout` is the heartbeat-silence budget before an
+    alive producer is declared hung (keep it generous — one SLOW batch
+    build is not a hang; Amazon2M-class builds take minutes).
+    `rebuild(consumed)`, when given, is called ONCE on a silent death
+    to obtain a replacement source already positioned past the
+    `consumed` items yielded so far; a second death raises.
+    """
+    if size <= 0:
+        for item in src:
+            yield item if transfer is None else transfer(item)
+        return
+
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    stop = threading.Event()
+    hb = HeartbeatMonitor(timeout_s=hang_timeout)
+
+    def _put(msg) -> bool:
+        """Bounded put that gives up when the consumer went away. Beats
+        while waiting on a full queue: a producer blocked on the
+        CONSUMER's backpressure is healthy, not hung."""
+        while not stop.is_set():
+            try:
+                q.put(msg, timeout=0.1)
+                return True
+            except queue.Full:
+                hb.beat(0)
+        return False
+
+    def _produce(source) -> None:
+        try:
+            hb.beat(0)
+            for item in source:
+                hb.beat(0)
+                if faults.maybe_fail("prefetch.producer_crash"):
+                    return          # dies silently: no _DONE, no _ERR
+                if faults.maybe_fail("prefetch.producer_hang"):
+                    stop.wait()     # alive but silent until shutdown
+                    return
+                if transfer is not None:
+                    item = transfer(item)
+                if not _put((_ITEM, item)):
+                    return
+            _put((_DONE, None))
+        except BaseException as e:          # noqa: BLE001 — re-raised below
+            _put((_ERR, e))
+
+    def _spawn(source) -> threading.Thread:
+        w = threading.Thread(target=_produce, args=(iter(source),),
+                             daemon=True, name="repro-batch-prefetch")
+        hb.beat(0)
+        w.start()
+        return w
+
+    worker = _spawn(src)
+    consumed = 0
+    rebuilt = False
+    try:
+        while True:
+            try:
+                kind, payload = q.get(timeout=poll_interval)
+            except queue.Empty:
+                # the queue was empty at poll time, so a dead worker
+                # cannot have items (or its _DONE/_ERR) still in flight
+                if not worker.is_alive():
+                    if rebuild is not None and not rebuilt:
+                        rebuilt = True
+                        worker = _spawn(rebuild(consumed))
+                        continue
+                    raise PrefetchError(
+                        "prefetch.producer_crash",
+                        f"producer thread died without finishing after "
+                        f"{consumed} item(s)"
+                        + ("" if rebuild is None else
+                           " (one-shot rebuild already used)"))
+                if hb.dead():
+                    raise PrefetchError(
+                        "prefetch.producer_hang",
+                        f"producer alive but silent for "
+                        f">{hang_timeout:g}s after {consumed} item(s) — "
+                        f"likely a deadlocked batch source")
+                continue
+            if kind == _DONE:
+                return
+            if kind == _ERR:
+                raise payload
+            consumed += 1
+            yield payload
+    finally:
+        stop.set()

@@ -1,18 +1,33 @@
-"""Host-side block-ELL builders (numpy) — a copy of the builders in
-`repro.kernels.ops`: `block_ell_from_csr` with its vectorized COO core,
-`block_ell_needed_k`, and the `TileBufferPool` that `_scatter_tiles`
-sources buffers from. Output is bit-identical to the reference's
-(tests/test_torch_host_stages.py). The tiles go to the device as torch
-tensors; the product itself is `repro_torch.kernels.block_spmm`.
+"""Host-side block-ELL builders (numpy) and the SpMM dispatch — the
+port of `repro.kernels.ops`.
 
-Format (what the CUDA kernel assumes): blocks (nrb, K, B, B) value
+Builders, copied from the reference: `block_ell_from_dense`,
+`block_ell_from_csr` with its vectorized COO core, `block_ell_transpose`,
+`block_ell_adj_from_dense`, `block_ell_adj_from_csr`,
+`block_ell_needed_k`, and the `TileBufferPool` that `_scatter_tiles`
+sources buffers from. Their tiles are bit-identical to the reference's
+(tests/test_torch_host_stages.py, tests/test_torch_batching.py); the
+`BlockEllAdj` builders wrap the numpy leaves as CPU tensors without a
+copy.
+
+Dispatch: `spmm(adj, x)` and `spmm_xw(adj, x, w, b)` take a dense
+adjacency (a tensor: `torch.matmul` in x's dtype with fp32
+accumulation) or a `BlockEllAdj` (the differentiable block-ELL products
+of `repro_torch.kernels.block_spmm`).
+
+Format (what the CUDA kernels assume): blocks (nrb, K, B, B) value
 tiles; block_cols (nrb, K) int32; within a row-block the occupied
 slots come first in ascending column-block order, and trailing empty
 slots hold an all-zero tile pointing at column-block 0.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
+
+from repro_torch.kernels.block_spmm import BlockEllAdj, spmm_ell, spmm_fused
 
 
 class TileBufferPool:
@@ -253,3 +268,209 @@ def block_ell_needed_k(indptr, indices, block: int, n_cols: int,
         return 0, 0
     return int(present.sum(1).max()), int(present.sum(0).max())
 
+
+
+def block_ell_from_dense(adj: np.ndarray, block: int = 128,
+                         k_slots: int | None = None,
+                         with_row_k: bool = False):
+    """Tile a dense (n, m) matrix into block-ELL. Returns (blocks,
+    block_cols) with shapes ((nrb, K, B, B), (nrb, K)); rows padded up to a
+    block multiple. Empty slots carry a zero tile pointing at col-block 0.
+    `with_row_k=True` appends the (nrb,) int32 per-row-block occupancy
+    (the K-specialization map) as a third element."""
+    n, m = adj.shape
+    B = block
+    nrb, ncb = -(-n // B), -(-m // B)
+    padded = np.zeros((nrb * B, ncb * B), adj.dtype)
+    padded[:n, :m] = adj
+    tiles = padded.reshape(nrb, B, ncb, B).transpose(0, 2, 1, 3)  # (nrb,ncb,B,B)
+    nz = np.abs(tiles).sum(axis=(2, 3)) > 0                        # (nrb, ncb)
+    need = int(nz.sum(1).max()) if nz.size else 0
+    K = k_slots if k_slots is not None else max(1, need)
+    if need > K:
+        raise ValueError(
+            f"k_slots={K} drops non-zero tiles (need {need})")
+    blocks = np.zeros((nrb, K, B, B), adj.dtype)
+    cols = np.zeros((nrb, K), np.int32)
+    for i in range(nrb):
+        cbs = np.where(nz[i])[0]
+        blocks[i, :len(cbs)] = tiles[i, cbs]
+        cols[i, :len(cbs)] = cbs
+    if with_row_k:
+        return blocks, cols, nz.sum(1).astype(np.int32)
+    return blocks, cols
+
+
+def block_ell_transpose(blocks: np.ndarray, block_cols: np.ndarray,
+                        n_col_blocks: int, k_slots: int | None = None,
+                        pool=None, with_row_k: bool = False):
+    """Host-side transpose of a block-ELL matrix: tile (i, →c) becomes
+    tile (c, →i) transposed. All-zero tiles (ELL padding slots) are
+    skipped so padding never inflates the transposed K. Duplicate
+    (row, col) tiles accumulate — the spmm sums over slots, so this stays
+    lossless. Raises if an explicit k_slots would drop a non-zero tile.
+    Vectorized: one fused any() over tiles + a stable argsort by column
+    block. `pool` (TileBufferPool) sources the transposed tile buffers
+    from the reuse ring — whole-tile writes are reported via
+    `mark_rows`, so the recycle re-zeros one (B, B) row span per written
+    slot instead of the full K_t·B² fill. `with_row_k=True` appends the
+    (ncb,) int32 occupancy of the transposed tiles as a third element."""
+    blocks = np.asarray(blocks)
+    block_cols = np.asarray(block_cols)
+    nrb, K, B, _ = blocks.shape
+    ncb = n_col_blocks
+    nz = (blocks.reshape(nrb, K, -1).any(axis=-1) if blocks.size
+          else np.zeros((nrb, K), bool))
+    i_arr, k_arr = np.nonzero(nz)               # ordered by (i, k)
+    c_arr = block_cols[i_arr, k_arr].astype(np.int64)
+    counts = np.bincount(c_arr, minlength=ncb)
+    K_t = k_slots if k_slots is not None else max(1, int(counts.max())
+                                                  if counts.size else 1)
+    if len(c_arr) and int(counts.max()) > K_t:
+        raise ValueError(
+            f"k_slots={K_t} drops non-zero transposed tiles "
+            f"(need {int(counts.max())})")
+    if pool is None:
+        blocks_t = np.zeros((ncb, K_t, B, B), blocks.dtype)
+        cols_t = np.zeros((ncb, K_t), np.int32)
+        bt_flat = ct_flat = None
+    else:
+        bt_flat = pool.zeros(ncb * K_t * B * B, blocks.dtype)
+        ct_flat = pool.zeros(ncb * K_t, np.int32)
+        blocks_t = bt_flat.reshape(ncb, K_t, B, B)
+        cols_t = ct_flat.reshape(ncb, K_t)
+    if len(c_arr):
+        order = np.argsort(c_arr, kind="stable")  # keep (i, k) order per c
+        cs = c_arr[order]
+        start = np.zeros(ncb + 1, np.int64)
+        np.cumsum(counts, out=start[1:])
+        slot = np.arange(len(cs), dtype=np.int64) - start[cs]
+        blocks_t[cs, slot] = blocks[i_arr[order], k_arr[order]] \
+            .transpose(0, 2, 1)
+        cols_t[cs, slot] = i_arr[order].astype(np.int32)
+        if pool is not None:
+            written = cs * K_t + slot
+            pool.mark_rows(bt_flat, written, B * B)
+            pool.mark(ct_flat, written)
+    elif pool is not None:
+        empty = np.empty(0, np.int64)
+        pool.mark(bt_flat, empty)
+        pool.mark(ct_flat, empty)
+    if with_row_k:
+        return blocks_t, cols_t, counts.astype(np.int32)
+    return blocks_t, cols_t
+
+
+def block_ell_adj_from_dense(adj: np.ndarray, block: int = 128,
+                             k_slots: int | None = None,
+                             k_slots_t: int | None = None) -> BlockEllAdj:
+    """BlockEllAdj (forward + transposed tiles) from a dense matrix.
+    Leaves are CPU tensors over the host numpy arrays; `.to(device)`
+    moves them when the step runs."""
+    blocks, cols, row_k = block_ell_from_dense(adj, block, k_slots,
+                                               with_row_k=True)
+    ncb = -(-adj.shape[1] // block)
+    kt = k_slots_t if k_slots_t is not None else k_slots
+    blocks_t, cols_t, row_k_t = block_ell_transpose(blocks, cols, ncb, kt,
+                                                    with_row_k=True)
+    return BlockEllAdj.from_numpy(blocks, cols, blocks_t, cols_t,
+                                  row_k, row_k_t)
+
+
+def block_ell_adj_from_csr(indptr, indices, data, n_cols: int,
+                           block: int = 128, k_slots: int | None = None,
+                           k_slots_t: int | None = None,
+                           n_rows: int | None = None,
+                           assume_unique: bool | None = None,
+                           k_chooser=None, pool=None) -> BlockEllAdj:
+    """BlockEllAdj from CSR without densifying — the ClusterBatcher
+    sparse path (normalize_csr output goes straight to tiles). The
+    transpose is built DIRECTLY from the CSR coordinates (CSC = swapped
+    COO through the same vectorized assembler — tile (c,→i) of Âᵀ is
+    tile (i,→c) of Â transposed), never tile-by-tile from the forward
+    tiles. `assume_unique=True` skips the duplicate-coordinate probe
+    when the caller knows the CSR is canonical (everything
+    normalize_csr emits is). `k_chooser` (mutually exclusive with
+    k_slots/k_slots_t) maps the measured (need_fwd, need_t) to one K for
+    both directions — the fill-adaptive bucket policy picks its bucket
+    HERE, from the occupancy this builder computes anyway. `pool`
+    (TileBufferPool) reuses the big tile buffers across calls — see the
+    pool's lifetime contract; output values are bit-identical either
+    way."""
+    n = len(indptr) - 1
+    B = block
+    nrb, ncb = -(-max(n, n_rows or 0) // B), -(-n_cols // B)
+    rows = _expand_rows(indptr)
+    cols_coo = np.asarray(indices)
+    data = np.asarray(data)
+    # everything O(nnz) is computed ONCE and shared by both scatter
+    # directions: the duplicate probe, the block/offset coordinates (the
+    # transpose swaps them), and the tile-occupancy bincount (the
+    # transposed occupancy is its transpose)
+    uniq_coords = assume_unique if assume_unique is not None else \
+        not _has_duplicate_coords(rows, cols_coo, np.int64(ncb) * B)
+    rb, cb, rlo, clo = _block_coords(rows, cols_coo, B, nrb, ncb)
+    present = (np.bincount(rb.astype(np.int64, copy=False) * ncb + cb,
+                           minlength=nrb * ncb) > 0).reshape(nrb, ncb)
+    need_f = int(present.sum(1).max()) if present.size else 0
+    need_t = int(present.sum(0).max()) if present.size else 0
+    if k_chooser is not None:
+        if k_slots is not None or k_slots_t is not None:
+            raise ValueError("pass either k_chooser or k_slots/k_slots_t")
+        K = Kt = int(k_chooser(need_f, need_t))
+    else:
+        K = k_slots if k_slots is not None else max(1, need_f)
+        kt = k_slots_t if k_slots_t is not None else k_slots
+        Kt = kt if kt is not None else max(1, need_t)
+    if need_f > K:
+        raise ValueError(
+            f"k_slots={K} drops non-zero tiles (need {need_f})")
+    if need_t > Kt:
+        raise ValueError(
+            f"k_slots={Kt} drops non-zero tiles (need {need_t})")
+    blocks, cols = _scatter_tiles(present, rb, cb, rlo, clo, data, K, B,
+                                  uniq_coords, pool=pool)
+    blocks_t, cols_t = _scatter_tiles(present.T, cb, rb, clo, rlo, data,
+                                      Kt, B, uniq_coords, pool=pool)
+    # the occupancy bincount computed above IS the K-specialization map —
+    # per-row-block live slots forward, per-col-block for the transpose
+    return BlockEllAdj.from_numpy(blocks, cols, blocks_t, cols_t,
+                                  present.sum(1).astype(np.int32),
+                                  present.sum(0).astype(np.int32))
+
+
+# ----------------------------------------------------------------------
+# SpMM dispatch
+# ----------------------------------------------------------------------
+def spmm(adj, x: torch.Tensor) -> torch.Tensor:
+    """Adjacency-polymorphic y = Â x — the seam every training layer
+    dispatches through. A dense `adj` tensor goes to `spmm_dense`; a
+    `BlockEllAdj` to the differentiable block-ELL product `spmm_ell`
+    (CUDA kernel on the GPU, its plain version on the CPU; backward on
+    the transposed tiles). The result is in x's dtype with fp32
+    accumulation either way; Â gets no gradient."""
+    if isinstance(adj, BlockEllAdj):
+        return spmm_ell(adj, x)
+    return spmm_dense(adj, x)
+
+
+def spmm_dense(adj: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Dense path: adj rounded to x's dtype, fp32 accumulation, result
+    cast to x's dtype (plain `adj @ x` when everything is fp32)."""
+    return torch.matmul(adj.to(x.dtype).float(), x.float()).to(x.dtype)
+
+
+def spmm_xw(adj, x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Adjacency-polymorphic fused y = Â (X W + 1 bᵀ) — the seam
+    `gcn_forward` takes when `model.fuse_spmm` is on. A `BlockEllAdj`
+    goes to the fused block-ELL product (`spmm_fused`); a dense `adj`
+    runs the exact unfused layer math (XW in x's dtype with fp32
+    accumulation, fp32 bias, cast to x's dtype, `spmm_dense`)."""
+    if isinstance(adj, BlockEllAdj):
+        return spmm_fused(adj, x, w, b)
+    cd = x.dtype
+    z = torch.matmul(x.float(), w.to(cd).float())
+    if b is not None:
+        z = z + b
+    return spmm_dense(adj, z.to(cd))

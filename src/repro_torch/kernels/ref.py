@@ -28,3 +28,21 @@ def spmm_block_ell_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
     a = blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B)
     y = torch.bmm(a.to(op_dtype).float(), gathered.to(op_dtype).float())
     return y.reshape(nrb * B, F).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# fused Â·(XW + 1bᵀ)
+# ----------------------------------------------------------------------
+def spmm_fused_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
+                   x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor | None = None) -> torch.Tensor:
+    """y = Â (X W + 1 bᵀ) — counterpart of
+    `repro.kernels.ref.spmm_fused_ref`, with its contract: XW in the
+    operand dtype (x's) with an fp32 accumulator, an fp32 bias add, a
+    cast to x's dtype, then `spmm_block_ell_ref`. Multiplies every slot
+    (it needs no `row_k`)."""
+    op_dtype = x.dtype if x.is_floating_point() else torch.float32
+    xw = torch.matmul(x.to(op_dtype).float(), w.to(op_dtype).float())
+    if b is not None:
+        xw = xw + b.float()
+    return spmm_block_ell_ref(blocks, block_cols, xw.to(x.dtype))

@@ -1,14 +1,37 @@
-"""Spec loading shared by the port's drivers — the part of
-`repro.launch.run_experiment` that serving needs (`load_spec`,
-`DEFAULT_RESULTS`). The training driver itself comes with the training
-slice; until then `python -m repro.launch.run_experiment` trains and
-writes checkpoints that `repro_torch.launch.serve_gcn` restores."""
+"""Declarative experiment runner on the port — the training driver of
+`repro.launch.run_experiment`, plus `--device`.
+
+    python -m repro_torch.launch.run_experiment --preset ppi_sota \
+        --set batch.sparse_adj=true --set model.fuse_spmm=true
+    python -m repro_torch.launch.run_experiment --preset ppi_tiny \
+        --device cpu --set run.checkpoint_dir=/tmp/ck
+    python -m repro_torch.launch.run_experiment --spec results/.../spec.json \
+        --resume
+    python -m repro_torch.launch.run_experiment --preset reddit --print-spec
+
+Start from a registered preset (--preset, see --list-presets) or a spec
+JSON file (--spec), layer `--set section.field=value` overrides (values
+are JSON literals with plain-string fallback), then either print the
+resolved spec (--print-spec) or build + fit. `--resume` continues from
+the newest checkpoint in run.checkpoint_dir on the same trajectory as an
+uninterrupted run. `--device` defaults to "cuda"; a host without a GPU
+must pass `--device cpu`.
+
+Every run writes its reproducibility artifact next to its metrics:
+    <results-dir>/<spec.name>/spec.json     resolved spec (round-trips)
+    <results-dir>/<spec.name>/metrics.json  history + final eval score
+"""
 from __future__ import annotations
 
+import argparse
+import json
 import pathlib
+import sys
+import warnings
 
 from repro_torch.core.experiment import (ExperimentSpec, apply_overrides,
-                                         parse_set_items, preset, validate)
+                                         list_presets, parse_set_items,
+                                         preset, validate)
 
 # cwd-relative so non-editable installs don't write into site-packages
 DEFAULT_RESULTS = pathlib.Path("results") / "experiments"
@@ -24,10 +47,104 @@ def load_spec(args) -> ExperimentSpec:
         spec = ExperimentSpec.from_json(
             pathlib.Path(args.spec).read_text())
     else:
-        raise SystemExit("one of --preset/--spec is required")
+        raise SystemExit("one of --preset/--spec is required "
+                         "(see --list-presets)")
     try:
         apply_overrides(spec, parse_set_items(args.set))
     except (ValueError, KeyError) as e:
         # KeyError: unknown --set path; ValueError: malformed item
         raise SystemExit(str(e).strip('"'))
     return validate(spec)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.run_experiment",
+        description="build + run a declarative Cluster-GCN experiment "
+                    "(PyTorch/CUDA)")
+    ap.add_argument("--preset", help="registered preset name")
+    ap.add_argument("--spec", help="path to a spec JSON file")
+    ap.add_argument("--set", action="append", metavar="PATH=VALUE",
+                    help="override a spec field, e.g. run.epochs=2 "
+                         "(repeatable; JSON-literal values)")
+    ap.add_argument("--print-spec", action="store_true",
+                    help="print the resolved spec JSON and exit")
+    ap.add_argument("--list-presets", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint in "
+                         "run.checkpoint_dir")
+    ap.add_argument("--results-dir", default=str(DEFAULT_RESULTS),
+                    help="where <name>/spec.json + metrics.json land")
+    ap.add_argument("--device", default="cuda",
+                    help="where training runs: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.list_presets:
+        print("\n".join(list_presets()))
+        return 0
+
+    spec = load_spec(args)
+    if args.print_spec:
+        print(spec.to_json(indent=2))
+        return 0
+    if args.resume and not spec.run.checkpoint_dir:
+        raise SystemExit("--resume needs run.checkpoint_dir in the spec "
+                         "(e.g. --set run.checkpoint_dir=/tmp/ck)")
+    from repro_torch.device import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"[run_experiment] {e}")
+
+    from repro_torch.core.experiment import build_experiment
+    exp = build_experiment(spec, device=device)
+    # the reproducibility artifact goes down BEFORE training so a
+    # hard-killed run can still be resumed via --spec <...>/spec.json
+    out = pathlib.Path(args.results_dir) / spec.name
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "spec.json").write_text(spec.to_json(indent=2))
+    steps = exp.batcher.steps_per_epoch()
+    sampler_desc = (f"{spec.partition.num_parts} parts (within "
+                    f"{exp.partition_stats.within_fraction:.1%})")
+    if exp.partition_stats.cached is not None:
+        sampler_desc += (", partition cache "
+                         + ("hit" if exp.partition_stats.cached else "miss"))
+    print(f"[experiment] {spec.name}: {exp.graph.num_nodes} nodes, "
+          f"{exp.graph.num_edges // 2} edges, {sampler_desc}, "
+          f"{steps} steps/epoch x {spec.run.epochs} epochs on {device}"
+          f"{', resume' if args.resume else ''}", file=sys.stderr)
+    result = exp.fit(resume=args.resume)
+
+    # final eval on the explicit split (or the warn-on-fallback "auto")
+    from repro_torch.core.engine import resolve_eval_mask
+    from repro_torch.core.trainer import evaluate
+    split, mask = resolve_eval_mask(exp.graph, spec.run.eval_split,
+                                    warner=warnings.warn)
+    last = result.history[-1] if result.history else {}
+    if (last.get("eval_split") == split and "val_score" in last
+            and not exp.engine.preempted):
+        # EvalHook already scored these exact params on this split at
+        # the last epoch — skip the duplicate full-graph propagation
+        final_score = last["val_score"]
+    else:
+        final_score = evaluate(result.params, exp.graph, exp.cfg, mask,
+                               spec.batch.norm, spec.batch.diag_lambda)
+
+    metrics = {"history": result.history,
+               "final": {"split": split, "score": final_score},
+               "seconds": result.seconds,
+               "preempted": exp.engine.preempted,
+               "stop_reason": exp.engine.stop_reason,
+               "diverged": exp.engine.diverged,
+               "global_step": exp.engine.global_step,
+               "device": str(device)}
+    (out / "metrics.json").write_text(json.dumps(metrics, indent=1))
+    print(json.dumps({"name": spec.name, "epochs": len(result.history),
+                      "final_" + split + "_score": round(final_score, 4),
+                      "seconds": round(result.seconds, 1),
+                      "results": str(out)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
