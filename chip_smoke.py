@@ -43,6 +43,29 @@ this script. Phases, each of which must pass (no failure is caught):
    max|ref|)), the lazy halo re-embed of an invalidated cluster, and
    where the serving time goes (torch.profiler; host gather vs device
    step of a 256-id query).
+7. The flash-attention kernel against its plain version on the GPU:
+   causal, non-causal, window 17, softcap 30; D in {16, 64, 80, 128,
+   256} at B 1, Hq 4 over Hkv 1, ragged T 100; GQA 32/8 at T 256;
+   Tq 1 with Tk 96 and Tq 96 with Tk 64 (rows that see no key); fp32
+   and bf16; the same tolerances as phase 2. At the llama3.2-1b
+   prefill shape (B 4, Hq 32 over Hkv 8, T 2048, D 64, bf16, causal)
+   kernel ms, plain ms, bound ms and one library call timed as a
+   yardstick (`scaled_dot_product_attention(is_causal=True,
+   enable_gqa=True)`; the port never calls it).
+8. Serve llama3.2-1b (16 layers x 2048, GQA 32/8, random weights from
+   seed 0) through `repro_torch.launch.serve.main` — batch 4, prompt
+   2048, 32 generated tokens: exactly 16 flash launches in the prefill
+   and none in decode, finite logits, prefill seconds and decode tok/s.
+   Then, same params, two comparisons: the prefill's logits with the
+   kernel against the same prefill with the plain attention, and
+   prefill(S) against prefill(S-1) + one decode step. In fp32 (the
+   same random weights, uncast) both within 1e-4·max|ref|. In bf16,
+   the served dtype, both within twice the bf16 floor — the distance
+   of the plain bf16 prefill from the fp32 one — because at 16 layers
+   x 2048 bf16 rounding alone moves the logits by more than the
+   reference's 1e-2 (PERF.md). Then warm prefill and decode-step
+   times, and one prefill and four decode steps under torch.profiler
+   (device time by kernel, idle share).
 
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
@@ -53,6 +76,7 @@ temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -79,6 +103,12 @@ FUSED_MAIN = (2048, 2048)
 SERVE_TOL = 1e-4
 STEP_TOL = 1e-4
 TRAIN_SETS = ["batch.sparse_adj=true", "model.fuse_spmm=true"]
+# llama3.2-1b prefill: B 4, Hq 32 over Hkv 8, T 2048, head dim 64, bf16
+FLASH_MAIN = dict(B=4, Hq=32, Hkv=8, Tq=2048, Tk=2048, D=64)
+LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
+           "--gen", "32", "--seed", "0"]
+LM_TOL = 1e-2       # the reference's bound (tests/test_models.py)
+LM_FP32_TOL = 1e-4  # fp32 logits: summation order over 16 layers
 
 
 def _smi() -> str:
@@ -379,8 +409,6 @@ def phase_step_profile(results: dict) -> None:
     torch.profiler."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.batching import batch_to_device
 
     exp = _step_parts(TRAIN_SETS)
@@ -402,35 +430,15 @@ def phase_step_profile(results: dict) -> None:
         torch.cuda.synchronize()
         step.append(time.perf_counter() - t0)
     payload = batch_to_device(next(it).astuple(), "cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, loss, _ = backend.step(state, payload)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-            device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
-    busy = sum(device.values())
-    top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
+    prof = _profile(lambda: backend.step(state, payload), top_n=8)
     results["train_step"] = dict(
         host_build_ms=float(np.median(build)) * 1e3,
         copy_ms=float(np.median(copy)) * 1e3,
-        step_ms=float(np.median(step)) * 1e3,
-        profiled_step_wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=1.0 - busy / (wall * 1e3),
-        top_device_ms={k[:80]: v for k, v in top})
+        step_ms=float(np.median(step)) * 1e3, profiled_step=prof)
     print(f"[step] host batch build {np.median(build) * 1e3:.3f} ms, "
           f"copy to device {np.median(copy) * 1e3:.3f} ms, step "
           f"{np.median(step) * 1e3:.3f} ms (medians of 20, synchronised)")
-    print(f"[step] profiled step {wall * 1e3:.3f} ms wall, device busy "
-          f"{busy:.3f} ms, idle share {1.0 - busy / (wall * 1e3):.3f}")
-    for name, ms in top:
-        print(f"[step]   {ms:8.4f} ms  {name[:90]}")
+    _print_profile("step: one step profiled", prof)
 
 
 def phase_step_parity(results: dict) -> None:
@@ -516,33 +524,14 @@ def _breakdown(engine, results: dict) -> None:
     256-id query split into its host gather and its device step."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import full_graph_embeddings
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        full_graph_embeddings(engine.params, engine.graph, engine.parts,
-                              engine.cfg, norm=engine.norm,
-                              diag_lambda=engine.diag_lambda,
-                              block=engine.block)
-        wall = time.perf_counter() - t0
-    device = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-            device[evt.key] = device.get(evt.key, 0.0) + us / 1e6
-    busy = sum(device.values())
-    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
-    results["precompute_profile"] = dict(
-        wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
-        top_device_s={k[:80]: v for k, v in top})
-    print(f"[profile] precompute {wall:.3f} s wall, device busy "
-          f"{busy:.3f} s, idle share {1.0 - busy / wall:.3f}")
-    for name, sec in top:
-        print(f"[profile]   {sec:8.4f} s  {name[:90]}")
+    prof = _profile(lambda: full_graph_embeddings(
+        engine.params, engine.graph, engine.parts, engine.cfg,
+        norm=engine.norm, diag_lambda=engine.diag_lambda,
+        block=engine.block), top_n=6)
+    results["precompute_profile"] = prof
+    _print_profile("profile: precompute", prof)
 
     rng = np.random.default_rng(2)
     ids = rng.integers(0, engine.graph.num_nodes, size=256)
@@ -664,6 +653,256 @@ def phase_serve(results: dict, work: pathlib.Path,
     return launches
 
 
+def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, Hq, Tq, D, generator=g).to(dtype).cuda()
+    k = torch.randn(B, Hkv, Tk, D, generator=g).to(dtype).cuda()
+    v = torch.randn(B, Hkv, Tk, D, generator=g).to(dtype).cuda()
+    return q, k, v
+
+
+def phase_flash(results: dict) -> dict:
+    """The flash-attention kernel against its plain version; returns the
+    row of the llama3.2-1b prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (attention_mask,
+                                         multi_head_attention_ref)
+
+    masks = (dict(causal=True), dict(causal=False),
+             dict(causal=True, window=17), dict(causal=True, softcap=30.0))
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = []
+    for D in (16, 64, 80, 128, 256):
+        cases += [((1, 4, 1, 100, 100, D), dt, kw)
+                  for dt in dtypes for kw in masks]
+    for shape in ((1, 32, 8, 256, 256, 64), (1, 4, 2, 1, 96, 64),
+                  (1, 4, 2, 96, 64, 64)):
+        cases += [(shape, dt, kw) for dt in dtypes for kw in masks]
+    cases.append((tuple(FLASH_MAIN.values()), torch.bfloat16,
+                  dict(causal=True)))
+    main = None
+    for n, (shape, dtype, kw) in enumerate(cases):
+        B, Hq, Hkv, Tq, Tk, D = shape
+        q, k, v = _flash_inputs(*shape, dtype, seed=n)
+        y = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = multi_head_attention_ref(q, k, v, **kw)
+        err = float((y.float() - ref.float()).abs().max())
+        scale = max(1.0, float(ref.float().abs().max()))
+        dname = str(dtype).replace("torch.", "")
+        is_main = shape == tuple(FLASH_MAIN.values())
+        reps = 10 if is_main else 3
+        launch_kw = dict(dict(causal=True, window=None, softcap=None), **kw,
+                         scale=1.0 / D ** 0.5)
+        ms = _time_ms(lambda: fa._launch(q, k, v, **launch_kw), reps)
+        plain_ms = _time_ms(lambda: multi_head_attention_ref(q, k, v, **kw),
+                            reps)
+        pairs = int(attention_mask(Tq, Tk, kw.get("causal", True),
+                                   kw.get("window"), "cpu").sum())
+        row = dict(B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, dtype=dname,
+                   mask={k_: v_ for k_, v_ in kw.items()}, ms=ms,
+                   plain_ms=plain_ms, visible_pairs=pairs)
+        # QK^T and P.V: 2 FLOP per multiply-add each, over visible pairs
+        row["bound_ms"], row["bound_by"] = _bound(
+            4.0 * B * Hq * D * pairs, (q, k, v, y), dtype)
+        if is_main:
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            lib = library()
+            row["library_ms"] = _time_ms(library, reps)
+            row["library_max_abs_err_vs_plain"] = float(
+                (lib.float() - ref.float()).abs().max())
+            main = row
+        _check_case("flash_attention", row, err, scale, dname)
+        results["flash_cases"].append(row)
+        print(f"[flash] B={B} Hq={Hq:>2}/{Hkv} Tq={Tq:>4} Tk={Tk:>4} D={D:>3} "
+              f"{dname:>8} {kw}  max|Δ|={err:.3e} "
+              f"(tol {TOL[dname] * scale:.3e})  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
+              + (f"  sdpa {row['library_ms']:.4f} ms"
+                 if "library_ms" in row else ""))
+        del q, k, v, y, ref
+    return main
+
+
+def _profile(fn, top_n: int = 10) -> dict:
+    """Run fn once under torch.profiler: wall ms, device busy ms, idle
+    share and device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:top_n]
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=1.0 - busy / wall,
+                top_device_ms={k[:80]: v for k, v in top})
+
+
+def _print_profile(tag: str, prof: dict) -> None:
+    print(f"[{tag}] {prof['wall_ms']:.3f} ms wall, device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.3f}")
+    for name, ms in prof["top_device_ms"].items():
+        print(f"[{tag}]   {ms:9.4f} ms  {name}")
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _prefill_then_decode(lm, params, cfg, batch, caches, S):
+    """Logits of position S-1 by prefill(S-1) and one decode step."""
+    _, c = lm.prefill(params, cfg, {"tokens": batch["tokens"][:, :S - 1]},
+                      caches)
+    dec, _ = lm.decode_step(params, cfg, batch["tokens"][:, S - 1:], c, S - 1)
+    return dec
+
+
+def phase_lm_serve(results: dict) -> int:
+    """Serve llama3.2-1b at full width through the CLI — the main path
+    of the flash kernel — then parity, consistency and the breakdown."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import multi_head_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_tree
+
+    print(f"[lm] serve {' '.join(LM_ARGV)}")
+    # --- the main path: the launch count starts at 0 here ---------------
+    fa.LAUNCHES = 0
+    out = serve.main(LM_ARGV)
+    launches = fa.LAUNCHES
+    # ---------------------------------------------------------------------
+    cfg = get_arch("llama3.2-1b")
+    finite = bool(torch.isfinite(out["prefill_logits"]).all()
+                  and torch.isfinite(out["last_logits"]).all())
+    results["lm_serve"] = dict(
+        prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+        decode_steps=out["decode_steps"], decode_tok_s=out["decode_tok_s"],
+        launches=out["launches"], launches_total=launches,
+        first_row=out["tokens"][0].tolist(), finite=finite)
+    print(f"[lm] flash launches: prefill {out['launches']['prefill']}, "
+          f"decode {out['launches']['decode']} (expected "
+          f"{cfg.num_layers}, 0); logits finite: {finite}")
+    if launches != cfg.num_layers or out["launches"] != {
+            "prefill": cfg.num_layers, "decode": 0} or not finite:
+        raise AssertionError(f"LM serving: {results['lm_serve']}")
+    del out
+
+    B, S, G = 4, 2048, 32
+    torch.cuda.reset_peak_memory_stats()
+    params, caches = serve.init_serving(cfg, B, S + G, 0, "cuda")
+    batch = serve.make_batch(cfg, B, S, 0, "cuda")
+    with torch.no_grad():
+        prefill_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = lm.prefill(params, cfg, batch, caches)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, _ = lm.prefill(params, cfg, batch, caches,
+                              attn_fn=multi_head_attention_ref)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        dec = _prefill_then_decode(lm, params, cfg, batch, caches, S)
+        # the same params in fp32: where the paths must agree tightly
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params32 = init_tree(lm.spec_params(cfg32), torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        caches32 = init_tree(lm.spec_caches(cfg32, B, S + G),
+                             torch.Generator(), "cuda")
+        logits32, _ = lm.prefill(params32, cfg32, batch, caches32)
+        plain32, _ = lm.prefill(params32, cfg32, batch, caches32,
+                                attn_fn=multi_head_attention_ref)
+        dec32 = _prefill_then_decode(lm, params32, cfg32, batch, caches32, S)
+        del params32, caches32
+        parity = dict(
+            bf16_kernel_vs_plain=_rel(logits, plain),
+            bf16_prefill_vs_decode=_rel(dec, logits),
+            fp32_kernel_vs_plain=_rel(logits32, plain32),
+            fp32_prefill_vs_decode=_rel(dec32, logits32),
+            bf16_plain_vs_fp32=_rel(plain, plain32),
+            bf16_kernel_vs_fp32=_rel(logits, plain32))
+
+        c, tok = caches, dec.argmax(-1).to(torch.int32)[:, None]
+        step_s = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, c = lm.decode_step(params, cfg, tok, c, S + i)
+            tok = lg.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        prof_prefill = _profile(lambda: lm.prefill(params, cfg, batch,
+                                                   caches))
+
+        def four_steps():
+            t, cc = tok, c
+            for i in range(4):
+                lg, cc = lm.decode_step(params, cfg, t, cc, S + 10 + i)
+                t = lg.argmax(-1).to(torch.int32)[:, None]
+        prof_decode = _profile(four_steps)
+    floor = parity["bf16_plain_vs_fp32"]
+    parity.update(fp32_bound=LM_FP32_TOL, bf16_bound=2 * floor,
+                  issue_bound=LM_TOL)
+    results["lm_parity"] = parity
+    results["lm_time"] = dict(
+        prefill_warm_s=[float(x) for x in prefill_s],
+        prefill_warm_median_s=float(np.median(prefill_s)),
+        prefill_plain_attention_s=plain_s,
+        decode_step_median_ms=float(np.median(step_s)) * 1e3,
+        peak_memory_gib=peak_gb)
+    results["lm_prefill_profile"] = prof_prefill
+    results["lm_decode_profile"] = prof_decode
+    print(f"[lm] fp32, same params: prefill logits kernel vs plain "
+          f"attention rel {parity['fp32_kernel_vs_plain']:.3e}, prefill(S) "
+          f"vs prefill(S-1) + decode rel "
+          f"{parity['fp32_prefill_vs_decode']:.3e} (bound {LM_FP32_TOL})")
+    print(f"[lm] bf16: kernel vs plain rel "
+          f"{parity['bf16_kernel_vs_plain']:.3e}, prefill vs decode rel "
+          f"{parity['bf16_prefill_vs_decode']:.3e} (bound 2 x the bf16 "
+          f"floor = {2 * floor:.3e}); floor = plain bf16 vs plain fp32 "
+          f"{floor:.3e}, kernel bf16 vs plain fp32 "
+          f"{parity['bf16_kernel_vs_fp32']:.3e}")
+    print(f"[lm] warm prefill {np.median(prefill_s):.4f} s (median of 3; "
+          f"plain attention {plain_s:.4f} s); decode step "
+          f"{np.median(step_s) * 1e3:.3f} ms (median of 10, synchronised); "
+          f"peak memory {peak_gb:.2f} GiB")
+    _print_profile("lm prefill profile", prof_prefill)
+    _print_profile("lm decode profile (4 steps)", prof_decode)
+    if not (parity["fp32_kernel_vs_plain"] <= LM_FP32_TOL
+            and parity["fp32_prefill_vs_decode"] <= LM_FP32_TOL
+            and parity["bf16_kernel_vs_plain"] <= 2 * floor
+            and parity["bf16_prefill_vs_decode"] <= 2 * floor):
+        raise AssertionError(f"LM parity: {parity}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -688,7 +927,7 @@ def main() -> int:
     print(f"[build] all kernels built in {build_s:.2f} s")
 
     results = {"gpu": smi, "build_s": build_s, "kernel_cases": [],
-               "fused_cases": []}
+               "fused_cases": [], "flash_cases": []}
     spmm_rows = phase_kernels(results)
     fused_row = phase_fused(results)
 
@@ -701,6 +940,8 @@ def main() -> int:
         phase_step_parity(results)
         phase_unfused(results, work)
         serve_launches = phase_serve(results, work, trained["checkpoint"])
+        flash_row = phase_flash(results)
+        lm_launches = phase_lm_serve(results)
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
@@ -737,6 +978,16 @@ def main() -> int:
         "function_flops": fused_row["function_flops"],
         "kernel_flops": fused_row["kernel_flops"],
         "shape": {k: fused_row[k] for k in shape_keys if k in fused_row},
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": lm_launches,
+        "launches_by_path": results["lm_serve"]["launches"],
+        **numbers(flash_row),
+        "shape": {k: flash_row[k] for k in ("B", "Hq", "Hkv", "Tq", "Tk",
+                                            "D", "dtype", "mask")},
     }]
     results["kernels"] = kernels
     out = ROOT / "chiprun_out"

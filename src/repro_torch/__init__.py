@@ -8,8 +8,10 @@ Hopper (sm_90a) under `kernels/csrc/`, with a plain PyTorch version
 beside it that CPU tensors take.
 
 Ported so far: single-device Cluster-GCN training (`core/engine.py`,
-`launch/run_experiment.py`) and the GCN serving path (`serve/`,
-`launch/serve_gcn.py`), with the host stages they need. The GraphSAINT
-samplers, data parallelism, the baselines and the LM stack come in
-later slices.
+`launch/run_experiment.py`), the GCN serving path (`serve/`,
+`launch/serve_gcn.py`), with the host stages they need, and LM serving
+(`models/`, `dist/steps.py`, `launch/serve.py`: prefill through the
+flash-attention kernel, greedy decode over the KV cache). The
+GraphSAINT samplers, data parallelism, the baselines, LM training and
+the other LM block kinds come in later slices.
 """

@@ -1,5 +1,5 @@
-"""Host-side block-ELL builders (numpy) and the SpMM dispatch — the
-port of `repro.kernels.ops`.
+"""Host-side block-ELL builders (numpy), the SpMM dispatch and the
+attention dispatch — the port of `repro.kernels.ops`.
 
 Builders, copied from the reference: `block_ell_from_dense`,
 `block_ell_from_csr` with its vectorized COO core, `block_ell_transpose`,
@@ -13,7 +13,8 @@ copy.
 Dispatch: `spmm(adj, x)` and `spmm_xw(adj, x, w, b)` take a dense
 adjacency (a tensor: `torch.matmul` in x's dtype with fp32
 accumulation) or a `BlockEllAdj` (the differentiable block-ELL products
-of `repro_torch.kernels.block_spmm`).
+of `repro_torch.kernels.block_spmm`). `multi_head_attention(q, k, v)`
+is the attention seam of the LM stack (`kernels/flash_attention.py`).
 
 Format (what the CUDA kernels assume): blocks (nrb, K, B, B) value
 tiles; block_cols (nrb, K) int32; within a row-block the occupied
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.block_spmm import BlockEllAdj, spmm_ell, spmm_fused
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 class TileBufferPool:
@@ -474,3 +476,18 @@ def spmm_xw(adj, x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         z = z + b
     return spmm_dense(adj, z.to(cd))
+
+
+# ----------------------------------------------------------------------
+# attention dispatch
+# ----------------------------------------------------------------------
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window=None, softcap=None,
+                         scale=None) -> torch.Tensor:
+    """q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D); returns (B, Hq, Tq, D)
+    — the counterpart of `repro.kernels.ops.multi_head_attention`. GQA
+    maps q head h to kv head h // (Hq/Hkv). CUDA tensors run the flash
+    kernel (`csrc/flash_attention.cu`, kv heads indexed in place), CPU
+    tensors its plain version (kv heads repeated)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale)

@@ -7,7 +7,8 @@ Run on a machine with an sm_90 GPU and nvcc:
 Imports only torch and the port, so it runs where JAX is not installed.
 The kernel is held against its plain PyTorch version on the same CUDA
 inputs at 1e-5·max(1, max|y_ref|) in fp32 and 8e-3·max(1, max|y_ref|)
-in bf16, and the serving path against the host oracle.
+in bf16, and the serving paths against the host oracle (GCN) and the
+CPU's plain versions (LM).
 """
 import numpy as np
 import pytest
@@ -184,3 +185,92 @@ def test_differentiable_products_on_gpu_match_cpu(cuda, fused, dtype):
         want = want.detach().float()
         err = float((got.detach().float().cpu() - want).abs().max())
         assert err <= tol * max(1.0, float(want.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# flash attention and the LM serving path
+# ----------------------------------------------------------------------
+_ATTN = [dict(causal=True), dict(causal=False), dict(causal=True, window=17),
+         dict(causal=True, softcap=30.0)]
+
+
+@pytest.mark.parametrize("kw", _ATTN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D", [
+    (2, 4, 1, 100, 100, 16), (1, 8, 2, 1, 96, 64), (1, 4, 2, 96, 64, 80),
+    (1, 2, 2, 130, 130, 128), (1, 2, 1, 70, 70, 256)])
+def test_flash_kernel_matches_plain_version(cuda, kw, dtype, B, Hq, Hkv, Tq,
+                                            Tk, D):
+    """Ragged T, decode-style Tq 1, Tq > Tk (rows that see no key give 0),
+    D 16..256 (D 256 needs the opt-in shared memory), GQA 4/1 and 4/2."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import multi_head_attention_ref
+    g = torch.Generator().manual_seed(Tq + D)
+    q = torch.randn(B, Hq, Tq, D, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, Hkv, Tk, D, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, Hkv, Tk, D, generator=g).to(dtype).to(cuda)
+    before = fa.LAUNCHES
+    y = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = multi_head_attention_ref(q, k, v, **kw).float()
+    err = float((y.float() - want).abs().max())
+    assert err <= TOL[dtype] * max(1.0, float(want.abs().max()))
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """The model passes transposed (B, T, H, D) views; the kernel reads
+    them through their strides."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 77, 8, 64, generator=g).bfloat16().to(cuda)
+    kv = torch.randn(2, 77, 2, 64, generator=g).bfloat16().to(cuda)
+    got = fa.flash_attention(x.transpose(1, 2), kv.transpose(1, 2),
+                             kv.transpose(1, 2))
+    want = fa.flash_attention(x.transpose(1, 2).contiguous(),
+                              kv.transpose(1, 2).contiguous(),
+                              kv.transpose(1, 2).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_lm_prefill_and_decode_on_gpu_match_cpu(cuda):
+    """SMOKE llama3.2-1b in fp32, same params: prefill (the flash kernel,
+    one launch per layer) and one decode step on the GPU against the
+    CPU's plain versions, 1e-4 relative (other summation orders)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_tree
+    from repro_torch.nn.tree import tree_map
+    cfg = dataclasses.replace(get_arch("llama3.2-1b", smoke=True),
+                              compute_dtype="float32")
+    params = init_tree(lm.spec_params(cfg), torch.Generator().manual_seed(0),
+                       "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        c = init_tree(lm.spec_caches(cfg, 2, 48), torch.Generator(), dev)
+        before = fa.LAUNCHES
+        with torch.no_grad():
+            logits, c = lm.prefill(p, cfg, {"tokens": toks.to(dev)}, c)
+            dec, _ = lm.decode_step(p, cfg, toks[:, :1].to(dev), c, 40)
+        out[str(dev)] = (logits.cpu(), dec.cpu(), fa.LAUNCHES - before)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == cfg.num_layers
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+def test_serve_cli_on_gpu_launches_once_per_layer_in_prefill(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "llama3.2-1b", "--smoke", "--batch", "2",
+                      "--prompt-len", "33", "--gen", "4"])
+    assert out["device"].startswith("cuda")
+    assert out["launches"] == {"prefill": 2, "decode": 0}
+    assert torch.isfinite(out["prefill_logits"]).all()
+    assert out["tokens"].shape == (2, 4)
