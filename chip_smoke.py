@@ -9,7 +9,9 @@ this script. Phases, each of which must pass (no failure is caught):
 
 1. Build: compiles every CUDA kernel of the port from the sources in
    this checkout (one nvcc per source, in parallel) and prints the GPU's
-   name and power limit (nvidia-smi) and the build time.
+   name and power limit (nvidia-smi) and the build time. Counts the
+   HGMMA (wgmma) instructions in the SASS of the bf16 flash library
+   (`cuobjdump -sass`) and fails at 0.
 2. Kernels vs their plain versions on the GPU, same inputs:
    `spmm_block_ell` over B in {8, 16, 128}, F in {1, 121, 2048}, fp32 and
    bf16, row_k None and given, K = 0, the ppi_sota serving cluster shape
@@ -43,19 +45,24 @@ this script. Phases, each of which must pass (no failure is caught):
    max|ref|)), the lazy halo re-embed of an invalidated cluster, and
    where the serving time goes (torch.profiler; host gather vs device
    step of a 256-id query).
-7. The flash-attention kernel against its plain version on the GPU:
-   causal, non-causal, window 17, softcap 30; D in {16, 64, 80, 128,
-   256} at B 1, Hq 4 over Hkv 1, ragged T 100; GQA 32/8 at T 256;
-   Tq 1 with Tk 96 and Tq 96 with Tk 64 (rows that see no key); fp32
-   and bf16; the same tolerances as phase 2. At the llama3.2-1b
-   prefill shape (B 4, Hq 32 over Hkv 8, T 2048, D 64, bf16, causal)
-   kernel ms, plain ms, bound ms and one library call timed as a
-   yardstick (`scaled_dot_product_attention(is_causal=True,
-   enable_gqa=True)`; the port never calls it).
+7. The flash-attention kernels against their plain version on the GPU
+   (fp32: the CUDA-core kernel; bf16: the wgmma/TMA kernel): causal,
+   non-causal, window 17, softcap 30; D in {16, 64, 80, 128, 256} at
+   B 1, Hq 4 over Hkv 1, ragged T 100; GQA 32/8 at T 256; Tq 1 with
+   Tk 96 and Tq 96 with Tk 64 (rows that see no key); fp32 and bf16;
+   the same tolerances as phase 2. Then bf16 only: D 128 and 256 at
+   T 2048 causal, gemma3's local layer (Hq 4 over 1, D 256, window 512,
+   softcap 30), Tk 1000 (not a multiple of 128) with Tq 300 and 1000,
+   and the model's transposed (B, T, H, D) views at T 1000. At the
+   llama3.2-1b prefill shape (B 4, Hq 32 over Hkv 8, T 2048, D 64,
+   bf16, causal) kernel ms, TFLOP/s, % of the bound, plain ms and one
+   library call timed as a yardstick (`scaled_dot_product_attention(
+   is_causal=True, enable_gqa=True)`; the port never calls it).
 8. Serve llama3.2-1b (16 layers x 2048, GQA 32/8, random weights from
    seed 0) through `repro_torch.launch.serve.main` — batch 4, prompt
-   2048, 32 generated tokens: exactly 16 flash launches in the prefill
-   and none in decode, finite logits, prefill seconds and decode tok/s.
+   2048, 32 generated tokens: exactly 16 flash launches in the prefill,
+   all of them the bf16 wgmma kernel, and none in decode, finite
+   logits, prefill seconds and decode tok/s.
    Then, same params, two comparisons: the prefill's logits with the
    kernel against the same prefill with the plain attention, and
    prefill(S) against prefill(S-1) + one decode step. In fp32 (the
@@ -116,6 +123,15 @@ def _smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _hgmma_count(lib: pathlib.Path) -> int:
+    """HGMMA instructions in the SASS of a built library."""
+    from repro_torch.kernels import _build
+    cuobjdump = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -653,13 +669,17 @@ def phase_serve(results: dict, work: pathlib.Path,
     return launches
 
 
-def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed):
+def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, strided=False):
+    """q, k, v as (B, H, T, D); strided: transposed views of (B, T, H, D)
+    tensors, as the model hands them over."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn(B, Hq, Tq, D, generator=g).to(dtype).cuda()
-    k = torch.randn(B, Hkv, Tk, D, generator=g).to(dtype).cuda()
-    v = torch.randn(B, Hkv, Tk, D, generator=g).to(dtype).cuda()
-    return q, k, v
+    out = []
+    for H, T in ((Hq, Tq), (Hkv, Tk), (Hkv, Tk)):
+        shape = (B, T, H, D) if strided else (B, H, T, D)
+        x = torch.randn(*shape, generator=g).to(dtype).cuda()
+        out.append(x.transpose(1, 2) if strided else x)
+    return tuple(out)
 
 
 def phase_flash(results: dict) -> dict:
@@ -681,12 +701,20 @@ def phase_flash(results: dict) -> dict:
     for shape in ((1, 32, 8, 256, 256, 64), (1, 4, 2, 1, 96, 64),
                   (1, 4, 2, 96, 64, 64)):
         cases += [(shape, dt, kw) for dt in dtypes for kw in masks]
-    cases.append((tuple(FLASH_MAIN.values()), torch.bfloat16,
-                  dict(causal=True)))
+    cases = [(shape, dt, kw, False) for shape, dt, kw in cases]
+    bf16, causal = torch.bfloat16, dict(causal=True)
+    cases += [((1, 8, 2, 2048, 2048, 128), bf16, causal, False),
+              ((1, 8, 2, 2048, 2048, 256), bf16, causal, False),
+              ((1, 4, 1, 2048, 2048, 256), bf16,     # gemma3's local layer
+               dict(causal=True, window=512, softcap=30.0), False),
+              ((2, 8, 2, 300, 1000, 64), bf16, causal, False),
+              ((1, 4, 2, 1000, 1000, 128), bf16, dict(causal=False), False),
+              ((2, 32, 8, 1000, 1000, 64), bf16, causal, True)]
+    cases.append((tuple(FLASH_MAIN.values()), bf16, causal, False))
     main = None
-    for n, (shape, dtype, kw) in enumerate(cases):
+    for n, (shape, dtype, kw, strided) in enumerate(cases):
         B, Hq, Hkv, Tq, Tk, D = shape
-        q, k, v = _flash_inputs(*shape, dtype, seed=n)
+        q, k, v = _flash_inputs(*shape, dtype, seed=n, strided=strided)
         y = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         ref = multi_head_attention_ref(q, k, v, **kw)
@@ -703,11 +731,12 @@ def phase_flash(results: dict) -> dict:
         pairs = int(attention_mask(Tq, Tk, kw.get("causal", True),
                                    kw.get("window"), "cpu").sum())
         row = dict(B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, dtype=dname,
-                   mask={k_: v_ for k_, v_ in kw.items()}, ms=ms,
-                   plain_ms=plain_ms, visible_pairs=pairs)
+                   mask={k_: v_ for k_, v_ in kw.items()}, strided=strided,
+                   ms=ms, plain_ms=plain_ms, visible_pairs=pairs)
         # QK^T and P.V: 2 FLOP per multiply-add each, over visible pairs
-        row["bound_ms"], row["bound_by"] = _bound(
-            4.0 * B * Hq * D * pairs, (q, k, v, y), dtype)
+        row["flops"] = 4.0 * B * Hq * D * pairs
+        row["bound_ms"], row["bound_by"] = _bound(row["flops"], (q, k, v, y),
+                                                  dtype)
         if is_main:
             def library():
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -720,12 +749,21 @@ def phase_flash(results: dict) -> dict:
         _check_case("flash_attention", row, err, scale, dname)
         results["flash_cases"].append(row)
         print(f"[flash] B={B} Hq={Hq:>2}/{Hkv} Tq={Tq:>4} Tk={Tk:>4} D={D:>3} "
-              f"{dname:>8} {kw}  max|Δ|={err:.3e} "
+              f"{dname:>8} {kw}{' strided' if strided else ''}  "
+              f"max|Δ|={err:.3e} "
               f"(tol {TOL[dname] * scale:.3e})  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
               + (f"  sdpa {row['library_ms']:.4f} ms"
                  if "library_ms" in row else ""))
         del q, k, v, y, ref
+    main["tflop_s"] = main["flops"] / main["ms"] / 1e9
+    main["bound_share"] = main["bound_ms"] / main["ms"]
+    main["vs_library"] = main["ms"] / main["library_ms"]
+    print(f"[flash] prefill shape: kernel {main['ms']:.4f} ms, "
+          f"{main['tflop_s']:.1f} TFLOP/s, {100 * main['bound_share']:.1f}% "
+          f"of the {main['bound_ms']:.4f} ms bound; plain "
+          f"{main['plain_ms']:.4f} ms; sdpa {main['library_ms']:.4f} ms "
+          f"(kernel / sdpa = {main['vs_library']:.2f})")
     return main
 
 
@@ -789,9 +827,9 @@ def phase_lm_serve(results: dict) -> int:
 
     print(f"[lm] serve {' '.join(LM_ARGV)}")
     # --- the main path: the launch count starts at 0 here ---------------
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
     out = serve.main(LM_ARGV)
-    launches = fa.LAUNCHES
+    launches, launches_sm90 = fa.LAUNCHES, fa.LAUNCHES_SM90
     # ---------------------------------------------------------------------
     cfg = get_arch("llama3.2-1b")
     finite = bool(torch.isfinite(out["prefill_logits"]).all()
@@ -800,11 +838,14 @@ def phase_lm_serve(results: dict) -> int:
         prefill_s=out["prefill_s"], decode_s=out["decode_s"],
         decode_steps=out["decode_steps"], decode_tok_s=out["decode_tok_s"],
         launches=out["launches"], launches_total=launches,
+        launches_sm90=launches_sm90,
         first_row=out["tokens"][0].tolist(), finite=finite)
     print(f"[lm] flash launches: prefill {out['launches']['prefill']}, "
           f"decode {out['launches']['decode']} (expected "
-          f"{cfg.num_layers}, 0); logits finite: {finite}")
-    if launches != cfg.num_layers or out["launches"] != {
+          f"{cfg.num_layers}, 0), of them the bf16 wgmma kernel "
+          f"{launches_sm90}; logits finite: {finite}")
+    if launches != cfg.num_layers or launches_sm90 != cfg.num_layers \
+            or out["launches"] != {
             "prefill": cfg.num_layers, "decode": 0} or not finite:
         raise AssertionError(f"LM serving: {results['lm_serve']}")
     del out
@@ -925,9 +966,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels built in {build_s:.2f} s")
+    hgmma = _hgmma_count(_build.library_path("flash_attention_sm90"))
+    print(f"[build] flash_attention_sm90: {hgmma} HGMMA instructions in its "
+          f"SASS")
+    if hgmma == 0:
+        raise AssertionError("the bf16 flash kernel has no wgmma (HGMMA) "
+                             "instruction")
 
-    results = {"gpu": smi, "build_s": build_s, "kernel_cases": [],
-               "fused_cases": [], "flash_cases": []}
+    results = {"gpu": smi, "build_s": build_s, "flash_sm90_hgmma": hgmma,
+               "kernel_cases": [], "fused_cases": [], "flash_cases": []}
     spmm_rows = phase_kernels(results)
     fused_row = phase_fused(results)
 
@@ -981,11 +1028,13 @@ def main() -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "fp32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
         "launches": lm_launches,
         "launches_by_path": results["lm_serve"]["launches"],
         **numbers(flash_row),
+        "tflop_s": flash_row["tflop_s"],
         "shape": {k: flash_row[k] for k in ("B", "Hq", "Hkv", "Tq", "Tk",
                                             "D", "dtype", "mask")},
     }]

@@ -25,7 +25,8 @@ import time
 from typing import Dict, List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("block_ell_spmm", "block_ell_spmm_fused", "flash_attention")
+SOURCES = ("block_ell_spmm", "block_ell_spmm_fused", "flash_attention",
+           "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,8 +1,10 @@
-// Flash attention forward on Hopper (sm_90a), CUDA cores, fp32 arithmetic.
+// Flash attention forward on Hopper (sm_90a), CUDA cores, fp32 arithmetic:
+// the kernel of fp32 inputs. bf16 inputs launch flash_attention_sm90.cu
+// (wgmma tensor cores, TMA); no input falls from one kernel to the other.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` of
-// src/repro/kernels/flash_attention.py (called through `flash_attention`).
-// It computes, for every (batch, q head) and query row i,
+// src/repro/kernels/flash_attention.py (called through `flash_attention`)
+// for fp32 inputs. It computes, for every (batch, q head) and query row i,
 //
 //   s_j  = scale * <q_i, k_j>             (fp32; then softcap * tanh(s / softcap) if given)
 //   s_j  = -1e30 where key j is not visible (j >= Tk; causal: j > qpos;
@@ -10,7 +12,7 @@
 //   o_i  = sum_j softmax(s)_j v_j          (0 for a row that sees no key)
 //
 // with the running max, the denominator and the P.V accumulator in fp32 and
-// the output in q's dtype, as the TPU kernel does. GQA: q head h reads kv head
+// an fp32 output, as the TPU kernel does. GQA: q head h reads kv head
 // h / (Hq / Hkv), so the kv heads are never repeated in memory.
 //
 // Design. On the TPU the kv tiles are a sequential grid axis and m, l and acc
@@ -37,21 +39,16 @@
 // Shared memory: (D (64+4) + D (64+4) + 64 D + 64 (64+4)) floats, 67 KB at
 // D = 64 (three blocks per SM) and 217 KB at D = 256 (one block per SM).
 //
-// What bounds it. At the llama3.2-1b prefill (B 4, Hq 32 over Hkv 8, T 2048,
-// D 64, bf16, causal) the function needs 4 * B*Hq * D * T(T+1)/2 = 6.9e10 FLOP
-// and moves 84 MB: 0.07 ms on the H100's bf16 tensor cores (989 TFLOP/s), it
-// is bound by operations. This kernel keeps the reference's numerics: the
-// products run on the fp32 CUDA cores (67 TFLOP/s peak, so 1.0 ms at the very
-// best), and shared-memory traffic for the 4 x 4 register tiles limits it
-// below that. Tensor cores (mma.sync / wgmma with P rounded to bf16), TMA
-// loads and a deeper pipeline are a later change's levers.
+// What bounds it. fp32 is the parity path (TF32 stays off by the port's
+// contract): the products run on the fp32 CUDA cores (67 TFLOP/s peak), and
+// shared-memory traffic for the 4 x 4 register tiles limits it below that.
+// The served dtype, bf16, runs on the tensor cores in flash_attention_sm90.cu.
 //
 // C interface (loaded with ctypes): pointers and the stream are void*,
 // strides (in elements) long long, the rest int or float. The kernel launches
 // on `stream`, allocates nothing, does not synchronise, and the entry point
 // returns cudaGetLastError() (or the error of cudaFuncSetAttribute).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,11 +59,6 @@ constexpr int kPad = 4;        // row padding of the transposed tiles (keeps flo
 constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 struct Shape {
   long long q_sb, q_sh, q_st;  // q strides over batch, head, token (elements)
   long long k_sb, k_sh, k_st;
@@ -76,10 +68,10 @@ struct Shape {
   int has_softcap, causal, has_window, window;
 };
 
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, const Shape s) {
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, const Shape s) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ldq = kBQ + kPad;
   constexpr int ldk = kBK + kPad;
@@ -96,14 +88,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const int q_offset = s.Tk - s.Tq;
 
-  const T* qb = q + b * s.q_sb + h * s.q_sh;
-  const T* kb = k + b * s.k_sb + hk * s.k_sh;
-  const T* vb = v + b * s.v_sb + hk * s.v_sh;
+  const float* qb = q + b * s.q_sb + h * s.q_sh;
+  const float* kb = k + b * s.k_sb + hk * s.k_sh;
+  const float* vb = v + b * s.v_sb + hk * s.v_sh;
 
   for (int e = t; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;      // neighbours read neighbouring d
     const int row = q0 + r;
-    q_s[d * ldq + r] = row < s.Tq ? to_float(qb[row * s.q_st + d]) : 0.0f;
+    q_s[d * ldq + r] = row < s.Tq ? qb[row * s.q_st + d] : 0.0f;
   }
 
   // kv tiles holding a key visible to some row of this tile
@@ -130,8 +122,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / D, d = e - c * D;
       const int key = k0 + c;
       const bool ok = key < s.Tk;
-      k_s[d * ldk + c] = ok ? to_float(kb[key * s.k_st + d]) : 0.0f;
-      v_s[c * D + d] = ok ? to_float(vb[key * s.v_st + d]) : 0.0f;
+      k_s[d * ldk + c] = ok ? kb[key * s.k_st + d] : 0.0f;
+      v_s[c * D + d] = ok ? vb[key * s.v_st + d] : 0.0f;
     }
     __syncthreads();
 
@@ -221,26 +213,26 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + a;
     if (row >= s.Tq) continue;
     const float denom = fmaxf(l[a], 1e-30f);
-    T* out = o + (static_cast<long long>(bh) * s.Tq + row) * D;
+    float* out = o + (static_cast<long long>(bh) * s.Tq + row) * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int col = (tx + 16 * g) * 4;
       if (col < D) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) store(out + col + i, acc[a][g * 4 + i] / denom);
+        for (int i = 0; i < 4; ++i) out[col + i] = acc[a][g * 4 + i] / denom;
       }
     }
   }
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch_ng(const void* q, const void* k, const void* v, void* o, const Shape& s,
               int B, void* stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(s.D) * (kBQ + kPad) +
                                        static_cast<size_t>(s.D) * (kBK + kPad) +
                                        static_cast<size_t>(kBK) * s.D +
                                        static_cast<size_t>(kBK) * (kBQ + kPad));
-  auto kernel = flash_attention_kernel<T, NG>;
+  auto kernel = flash_attention_kernel<NG>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -248,12 +240,11 @@ int launch_ng(const void* q, const void* k, const void* v, void* o, const Shape&
   }
   const dim3 grid(static_cast<unsigned>(B) * s.Hq, static_cast<unsigned>((s.Tq + kBQ - 1) / kBQ));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            long long q_sb, long long q_sh, long long q_st,
            long long k_sb, long long k_sh, long long k_st,
@@ -264,10 +255,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const Shape s{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                 Hq, Hkv, Tq, Tk, D, scale, softcap,
                 has_softcap, causal, has_window, window};
-  if (D <= 64) return launch_ng<T, 1>(q, k, v, o, s, B, stream);
-  if (D <= 128) return launch_ng<T, 2>(q, k, v, o, s, B, stream);
-  if (D <= 192) return launch_ng<T, 3>(q, k, v, o, s, B, stream);
-  return launch_ng<T, 4>(q, k, v, o, s, B, stream);
+  if (D <= 64) return launch_ng<1>(q, k, v, o, s, B, stream);
+  if (D <= 128) return launch_ng<2>(q, k, v, o, s, B, stream);
+  if (D <= 192) return launch_ng<3>(q, k, v, o, s, B, stream);
+  return launch_ng<4>(q, k, v, o, s, B, stream);
 }
 
 }  // namespace
@@ -284,21 +275,9 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int Hkv, int Tq, int Tk, int D, float scale,
                         int has_softcap, float softcap, int causal, int has_window,
                         int window, void* stream) {
-  return launch<float>(q, k, v, o, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
+  return launch(q, k, v, o, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
                        B, Hq, Hkv, Tq, Tk, D, scale, has_softcap, softcap, causal,
                        has_window, window, stream);
-}
-
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         long long q_sb, long long q_sh, long long q_st,
-                         long long k_sb, long long k_sh, long long k_st,
-                         long long v_sb, long long v_sh, long long v_st,
-                         int B, int Hq, int Hkv, int Tq, int Tk, int D, float scale,
-                         int has_softcap, float softcap, int causal, int has_window,
-                         int window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
-                               v_st, B, Hq, Hkv, Tq, Tk, D, scale, has_softcap, softcap,
-                               causal, has_window, window, stream);
 }
 
 const char* flash_attention_error_string(int code) {

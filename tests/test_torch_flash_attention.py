@@ -205,15 +205,23 @@ class _FakeLib:
 @pytest.mark.parametrize("module,fns,source", [
     ("flash_attention", "_kernel_fns", "flash_attention"),
     ("block_spmm", "_kernel_fns", "block_ell_spmm"),
-    ("block_spmm", "_fused_fns", "block_ell_spmm_fused")])
+    ("block_spmm", "_fused_fns", "block_ell_spmm_fused"),
+    ("flash_attention", "_kernel_fns", "flash_attention_sm90")])
 def test_ctypes_argtypes_match_the_c_signatures(monkeypatch, module, fns,
                                                 source):
+    """Every entry point of the table that `source` defines has the
+    argtypes of its C signature."""
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     monkeypatch.setattr(mod._build, "load", lambda name: _FakeLib())
     table, _ = getattr(mod, fns).__wrapped__()
+    text = (_CSRC / f"{source}.cu").read_text()
+    checked = [fn.name for fn in table.values()
+               if re.search(rf"\bint {fn.name}\(", text)]
+    assert checked, f"no entry point of {fns} is defined in {source}.cu"
     for fn in table.values():
-        assert fn.argtypes == _c_argtypes(source, fn.name), fn.name
-        assert fn.restype is ctypes.c_int
+        if fn.name in checked:
+            assert fn.argtypes == _c_argtypes(source, fn.name), fn.name
+            assert fn.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("kw", [dict(causal=True),
@@ -227,8 +235,8 @@ def test_launch_passes_what_the_c_signature_takes(monkeypatch, kw):
         seen["args"] = args
         return 0
     proto = ctypes.CFUNCTYPE(ctypes.c_int,
-                             *_c_argtypes("flash_attention",
-                                          "flash_attention_bf16"))
+                             *_c_argtypes("flash_attention_sm90",
+                                          "flash_attention_sm90_bf16"))
     fn = proto(record)
     monkeypatch.setattr(fa, "_kernel_fns",
                         lambda: ({torch.bfloat16: fn}, None))
@@ -249,3 +257,84 @@ def test_launch_passes_what_the_c_signature_takes(monkeypatch, kw):
     assert args[20:26] == (int("softcap" in kw and kw["softcap"] is not None),
                            kw.get("softcap") or 0.0, int(kw["causal"]),
                            int("window" in kw), kw.get("window") or 0, 7)
+
+
+def _fake_cuda(monkeypatch):
+    monkeypatch.setattr(fa.torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+
+
+def _recording_kernels(monkeypatch):
+    """Replace both entry points with recorders; returns the call log."""
+    calls = []
+
+    def entry(name):
+        def fn(*args):
+            calls.append(name)
+            return 0
+        return fn
+    monkeypatch.setattr(fa, "_kernel_fns", lambda: (
+        {torch.float32: entry("flash_attention_f32"),
+         torch.bfloat16: entry("flash_attention_sm90_bf16")}, None))
+    _fake_cuda(monkeypatch)
+    return calls
+
+
+def test_launch_dispatches_bf16_to_sm90_and_fp32_to_cuda_cores(monkeypatch):
+    calls = _recording_kernels(monkeypatch)
+    kw = dict(causal=True, window=None, softcap=None, scale=0.25)
+    before, before_sm90 = fa.LAUNCHES, fa.LAUNCHES_SM90
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 4, 8, 16, dtype=dtype)
+        k = torch.zeros(1, 2, 8, 16, dtype=dtype)
+        fa._launch(q, k, k, **kw)
+    assert calls == ["flash_attention_sm90_bf16", "flash_attention_f32"]
+    assert fa.LAUNCHES == before + 2
+    assert fa.LAUNCHES_SM90 == before_sm90 + 1
+
+
+def _misaligned(what, dtype):
+    """q (1, 4, 8, 16) and k = v (1, 2, 8, 16) where q breaks TMA's
+    16-byte rule in one way (or in a size-1 dimension, which is exempt)."""
+    k = torch.zeros(1, 2, 8, 16, dtype=dtype)
+    if what == "token_stride":       # 20 elements = 40 bytes a token
+        q = torch.zeros(1, 4, 8, 20, dtype=dtype)[..., :16]
+    elif what == "head_stride":      # (B, T, H, D) view, H stride 20
+        q = torch.zeros(1, 8, 4, 20, dtype=dtype)[..., :16].transpose(1, 2)
+    elif what == "batch_stride":
+        q = torch.zeros(2 * 4 * 8 * 16 + 4, dtype=dtype).as_strided(
+            (2, 4, 8, 16), (4 * 8 * 16 + 4, 128, 16, 1))
+        k = torch.zeros(2, 2, 8, 16, dtype=dtype)
+    elif what == "base":             # one element past an aligned base
+        q = torch.zeros(1 + 4 * 8 * 16, dtype=dtype)[1:].view(1, 4, 8, 16)
+    else:                            # "size_1_dims": Tq 1, odd strides
+        q = torch.zeros(1, 4, 1, 16, dtype=dtype).as_strided(
+            (1, 4, 1, 16), (3, 16, 5, 1))
+    return q, k
+
+
+@pytest.mark.parametrize("what", ["token_stride", "head_stride",
+                                  "batch_stride", "base"])
+def test_bf16_view_that_breaks_tma_alignment_raises(monkeypatch, what):
+    """bf16 goes only to the TMA kernel: a view it cannot read raises
+    ValueError before any kernel is called; the same view in fp32 goes
+    to the CUDA-core kernel, which reads any strides."""
+    calls = _recording_kernels(monkeypatch)
+    kw = dict(causal=True, window=None, softcap=None, scale=0.25)
+    q, k = _misaligned(what, torch.bfloat16)
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._launch(q, k, k, **kw)
+    assert calls == [] and fa.LAUNCHES == before
+    q, k = _misaligned(what, torch.float32)
+    fa._launch(q, k, k, **kw)
+    assert calls == ["flash_attention_f32"]
+
+
+def test_size_1_dims_are_exempt_from_the_tma_rule(monkeypatch):
+    calls = _recording_kernels(monkeypatch)
+    q, k = _misaligned("size_1_dims", torch.bfloat16)
+    fa._launch(q, k, k, causal=True, window=None, softcap=None, scale=0.25)
+    assert calls == ["flash_attention_sm90_bf16"]

@@ -234,6 +234,47 @@ def test_flash_kernel_reads_strided_views(cuda):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=200, softcap=30.0)])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D", [
+    (2, 8, 2, 300, 300, 64), (1, 4, 1, 200, 333, 128),
+    (1, 4, 2, 333, 200, 256), (1, 4, 1, 129, 129, 80)])
+def test_sm90_kernel_matches_plain_version(cuda, B, Hq, Hkv, Tq, Tk, D, kw,
+                                           strided):
+    """The bf16 wgmma/TMA kernel at each D bucket (64, 128, 256; 80 pads
+    to 128), ragged Tq and Tk (Tq > Tk: rows that see no key give 0),
+    contiguous and as transposed (B, T, H, D) views."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import multi_head_attention_ref
+    g = torch.Generator().manual_seed(Tq + Tk + D)
+    ops = []
+    for H, T in ((Hq, Tq), (Hkv, Tk), (Hkv, Tk)):
+        shape = (B, T, H, D) if strided else (B, H, T, D)
+        x = torch.randn(*shape, generator=g).bfloat16().to(cuda)
+        ops.append(x.transpose(1, 2) if strided else x)
+    before = fa.LAUNCHES_SM90
+    y = fa.flash_attention(*ops, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_SM90 == before + 1
+    want = multi_head_attention_ref(*ops, **kw).float()
+    err = float((y.float() - want).abs().max())
+    assert err <= TOL[torch.bfloat16] * max(1.0, float(want.abs().max()))
+
+
+def test_sm90_kernel_rejects_views_tma_cannot_read(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.zeros(1, 4, 64, 72, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=cuda)
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(x[..., 1:65], k, k)  # base 2 bytes off
+    assert fa.LAUNCHES == before
+    y = fa.flash_attention(x[..., :64], k, k)  # token stride 144 bytes
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1 and y.shape == (1, 4, 64, 64)
+
+
 def test_lm_prefill_and_decode_on_gpu_match_cpu(cuda):
     """SMOKE llama3.2-1b in fp32, same params: prefill (the flash kernel,
     one launch per layer) and one decode step on the GPU against the
