@@ -11,7 +11,10 @@ this script. Phases, each of which must pass (no failure is caught):
    this checkout (one nvcc per source, in parallel) and prints the GPU's
    name and power limit (nvidia-smi) and the build time. Counts the
    HGMMA (wgmma) instructions in the SASS of the bf16 flash library
-   (`cuobjdump -sass`) and fails at 0.
+   (`cuobjdump -sass`) and fails at 0. For both GCN libraries (the tile
+   mainloop of `csrc/block_tile.cuh`) counts the asynchronous-copy
+   instructions (LDGSTS for cp.async, UTMALDG for TMA) and fails at 0,
+   and prints ptxas's registers per kernel, failing on any spill.
 2. Kernels vs their plain versions on the GPU, same inputs:
    `spmm_block_ell` over B in {8, 16, 128}, F in {1, 121, 2048}, fp32 and
    bf16, row_k None and given, K = 0, the ppi_sota serving cluster shape
@@ -21,11 +24,14 @@ this script. Phases, each of which must pass (no failure is caught):
    ppi_sota training shapes (D 50 → F 2048, 2048 → 2048, 2048 → 121;
    nrb 3, K 3, B 128). Tolerance max|Δ| <= 1e-5·max(1, max|y_ref|) in
    fp32 (different summation order) and 8e-3·max(1, max|y_ref|) in bf16
-   (one bf16 rounding of the output). Each case prints the error, kernel
-   ms, plain ms and bound ms (CUDA events after warm-up); the main shapes
-   also time one library call as a yardstick (torch.bmm on the gathered
-   operands; torch.addmm then that bmm for the fused product) — timed
-   only, the port never calls them.
+   (one bf16 rounding of the output); every case is also called twice
+   and must be bitwise equal (split contractions reduce in a fixed
+   order). Each case prints the error, kernel ms, plain ms and bound ms
+   (CUDA events after warm-up); the main shapes also time one library
+   call as a yardstick (torch.bmm on the gathered operands; torch.addmm
+   then that bmm for the fused product) — timed only, the port never
+   calls them — and print the kernel's factor against it, its share of
+   the bound and its launch plan (tile width, splits, copy width).
 3. Train ppi_sota (5 layers, 2048 wide, block-ELL batches, fused
    layers) for 2 epochs through `repro_torch.launch.run_experiment.main`
    — the main path: 5 fused launches and 5 block-ELL launches (the
@@ -88,6 +94,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -107,6 +114,7 @@ PPI_SHAPE = dict(nrb=3, K=110, B=128, ncb=110, F=2048)
 TRAIN_BWD_SHAPE = dict(nrb=3, K=3, B=128, ncb=3, F=2048)
 FUSED_TRAIN_SHAPES = ((50, 2048), (2048, 2048), (2048, 121))
 FUSED_MAIN = (2048, 2048)
+GCN_LIBS = ("block_ell_spmm", "block_ell_spmm_fused")
 SERVE_TOL = 1e-4
 STEP_TOL = 1e-4
 TRAIN_SETS = ["batch.sparse_adj=true", "model.fuse_spmm=true"]
@@ -125,13 +133,32 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _hgmma_count(lib: pathlib.Path) -> int:
-    """HGMMA instructions in the SASS of a built library."""
+def _sass_count(lib: pathlib.Path, *opcodes: str) -> int:
+    """Instructions with any of these opcodes in a built library's SASS."""
     from repro_torch.kernels import _build
     cuobjdump = pathlib.Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    return sum(any(op in line for op in opcodes)
+               for line in sass.splitlines())
+
+
+def _ptxas_entries(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) per
+    entry function, from nvcc's `-Xptxas -v` report."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return out
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -193,12 +220,13 @@ def _live_slots(blocks, row_k) -> int:
 
 
 def _check_case(name, row, err, scale, dname):
-    ok = err <= TOL[dname] * scale
+    # the GCN rows also hold the kernel to itself on a repeated call
+    ok = err <= TOL[dname] * scale and row.get("bitwise_repeat", True)
     row.update(max_abs_err=err, max_abs_ref=scale, tol=TOL[dname] * scale,
                ok=ok)
     if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version: "
-                             f"{row}")
+        raise AssertionError(f"{name} disagrees with its plain version, or "
+                             f"with itself on a repeated call: {row}")
 
 
 def phase_kernels(results: dict) -> dict:
@@ -229,6 +257,7 @@ def phase_kernels(results: dict) -> dict:
         blocks, cols, x, row_k = _case_inputs(nrb, K, B, ncb, F, dtype,
                                               mode, seed=n)
         y = block_spmm.spmm_block_ell(blocks, cols, x, row_k=row_k)
+        again = block_spmm.spmm_block_ell(blocks, cols, x, row_k=row_k)
         torch.cuda.synchronize()
         ref = spmm_block_ell_ref(blocks, cols, x)
         err = float((y.float() - ref.float()).abs().max()) if y.numel() \
@@ -244,7 +273,12 @@ def phase_kernels(results: dict) -> dict:
         plain_ms = _time_ms(lambda: spmm_block_ell_ref(blocks, cols, x),
                             reps)
         row = dict(nrb=nrb, K=K, B=B, ncb=ncb, F=F, dtype=dname,
-                   row_k=mode, ms=ms, plain_ms=plain_ms)
+                   row_k=mode, ms=ms, plain_ms=plain_ms,
+                   bitwise_repeat=bool(torch.equal(y, again)))
+        if K:
+            row["plan"] = dataclasses.asdict(block_spmm.spmm_plan(
+                nrb, K, B, F, dtype, (blocks.data_ptr(), x.data_ptr()),
+                block_spmm._sms(x.device)))
         flops = 2.0 * _live_slots(blocks, row_k) * B * B * F
         row["bound_ms"], row["bound_by"] = _bound(
             flops, (blocks, cols, x, y, row_k), dtype)
@@ -254,6 +288,10 @@ def phase_kernels(results: dict) -> dict:
             a = blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B)
             row["library_ms"] = _time_ms(lambda: torch.bmm(a, gathered),
                                          reps)
+            row["device_ms"] = _device_ms(
+                lambda: block_spmm._launch(blocks, cols, x, row_k))
+            row["library_device_ms"] = _device_ms(
+                lambda: torch.bmm(a, gathered))
             del gathered, a
             if is_ppi and dtype == torch.float32 and mode is None:
                 main["serve"] = row      # the shape and call serving makes
@@ -268,8 +306,47 @@ def phase_kernels(results: dict) -> dict:
               f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
               + (f"  bmm {row['library_ms']:.4f} ms"
                  if "library_ms" in row else ""))
-        del blocks, cols, x, y, ref
+        del blocks, cols, x, y, again, ref
+    for tag, row in (("serving", main["serve"]),
+                     ("training backward", main["train_bwd"])):
+        _print_vs_library(f"spmm at the {tag} shape", row, "bmm")
     return main
+
+
+def _device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of fn: the sum of its kernels' times under
+    torch.profiler, per call. Unlike `_time_ms` it leaves out the host's
+    launch overhead, which sets the pace of a call that is shorter on the
+    card than on the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def _print_vs_library(what: str, row: dict, library: str) -> None:
+    """A main row's factor against its library call and its share of the
+    bound (both from this run's times), in wall time per call and in
+    device time."""
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["device_vs_library"] = row["device_ms"] / row["library_device_ms"]
+    plan = row.get("plan") or row.get("plans")
+    print(f"[kernels] {what}: kernel {row['ms']:.4f} ms = "
+          f"{row['vs_library']:.2f} x {library} ({row['library_ms']:.4f} ms); "
+          f"{100 * row['bound_share']:.1f}% of the {row['bound_ms']:.4f} ms "
+          f"bound; device time {row['device_ms']:.4f} ms = "
+          f"{row['device_vs_library']:.2f} x {library}'s "
+          f"({row['library_device_ms']:.4f} ms); plan {plan}")
 
 
 def _fused_inputs(nrb, K, B, ncb, D, F, dtype, mode, seed):
@@ -304,12 +381,14 @@ def phase_fused(results: dict) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             cases.append((t["nrb"], t["K"], t["B"], t["ncb"], D, F, dtype,
                           "full"))
-    main = None
+    train_rows = {}
     for n, (nrb, K, B, ncb, D, F, dtype, mode) in enumerate(cases):
         blocks, cols, x, w, b, row_k = _fused_inputs(nrb, K, B, ncb, D, F,
                                                      dtype, mode, seed=n)
         y = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b,
                                             row_k=row_k)
+        again = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b,
+                                                row_k=row_k)
         torch.cuda.synchronize()
         ref = spmm_fused_ref(blocks, cols, x, w, b)
         err = float((y.float() - ref.float()).abs().max()) if y.numel() \
@@ -326,15 +405,23 @@ def phase_fused(results: dict) -> dict:
                             reps)
         live = _live_slots(blocks, row_k)
         # the function: XW over every row of x once, then the live tiles;
-        # the kernel recomputes XW per live slot, as the TPU kernel does
+        # the kernel computes each row of XW once too, so it does the same
         fn_flops = 2.0 * x.shape[0] * D * F + 2.0 * live * B * B * F
-        kernel_flops = live * (2.0 * B * D * F + 2.0 * B * B * F)
         row = dict(nrb=nrb, K=K, B=B, ncb=ncb, D=D, F=F, dtype=dname,
                    row_k=mode, ms=ms, plain_ms=plain_ms,
-                   function_flops=fn_flops, kernel_flops=kernel_flops)
+                   function_flops=fn_flops, kernel_flops=fn_flops,
+                   bitwise_repeat=bool(torch.equal(y, again)))
+        if K:
+            sms = block_spmm._sms(x.device)
+            row["plans"] = dict(
+                xw=dataclasses.asdict(block_spmm.xw_plan(
+                    x.shape[0], D, F, dtype, (x.data_ptr(), w.data_ptr()),
+                    sms)),
+                spmm=dataclasses.asdict(block_spmm.spmm_plan(
+                    nrb, K, B, F, dtype, (blocks.data_ptr(), 0), sms)))
         row["bound_ms"], row["bound_by"] = _bound(
             fn_flops, (blocks, cols, x, w, b, y, row_k), dtype)
-        if is_train and (D, F) == FUSED_MAIN:
+        if is_train and dtype == torch.float32:
             def library():
                 xw = torch.addmm(b.to(x.dtype), x, w)
                 gathered = xw.reshape(-1, B, F)[cols.long()].reshape(
@@ -343,8 +430,10 @@ def phase_fused(results: dict) -> dict:
                     blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B),
                     gathered)
             row["library_ms"] = _time_ms(library, reps)
-            if dtype == torch.float32:
-                main = row
+            row["device_ms"] = _device_ms(lambda: block_spmm._launch_fused(
+                blocks, cols, x, w, b, row_k))
+            row["library_device_ms"] = _device_ms(library)
+            train_rows[(D, F)] = row
         _check_case("block_ell_spmm_fused", row, err, scale, dname)
         results["fused_cases"].append(row)
         print(f"[fused] B={B:>3} D={D:>4} F={F:>4} nrb={nrb} K={K} "
@@ -354,8 +443,10 @@ def phase_fused(results: dict) -> dict:
               f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
               + (f"  addmm+bmm {row['library_ms']:.4f} ms"
                  if "library_ms" in row else ""))
-        del blocks, cols, x, w, b, y, ref
-    return main
+        del blocks, cols, x, w, b, y, again, ref
+    for (D, F), row in train_rows.items():
+        _print_vs_library(f"fused {D} -> {F}", row, "addmm+bmm")
+    return train_rows[FUSED_MAIN]
 
 
 def _train_argv(work: pathlib.Path, name: str, sets) -> list:
@@ -962,18 +1053,39 @@ def main() -> int:
     for b in builds:
         print(f"[build] {b.name}: {b.path.name} in {b.seconds:.2f} s"
               + (" (cached)" if b.cached else ""))
+        if b.name in GCN_LIBS:
+            continue             # summarised below, one line per library
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels built in {build_s:.2f} s")
-    hgmma = _hgmma_count(_build.library_path("flash_attention_sm90"))
+    hgmma = _sass_count(_build.library_path("flash_attention_sm90"), "HGMMA")
     print(f"[build] flash_attention_sm90: {hgmma} HGMMA instructions in its "
           f"SASS")
     if hgmma == 0:
         raise AssertionError("the bf16 flash kernel has no wgmma (HGMMA) "
                              "instruction")
+    gcn = {}
+    logs = {b.name: b.log for b in builds}
+    for name in GCN_LIBS:
+        copies = _sass_count(_build.library_path(name), "LDGSTS", "UTMALDG")
+        entries = _ptxas_entries(logs[name])
+        spilled = [e for e in entries if e[2] or e[3]]
+        gcn[name] = dict(async_copies=copies, entries=[
+            dict(kernel=e[0], registers=e[1], spill_stores=e[2],
+                 spill_loads=e[3]) for e in entries])
+        regs = sorted({e[1] for e in entries})
+        print(f"[build] {name}: {copies} asynchronous-copy instructions "
+              f"(LDGSTS/UTMALDG) in its SASS; {len(entries)} kernels, "
+              f"registers {regs}, {len(spilled)} with spills")
+        if copies == 0:
+            raise AssertionError(f"{name} has no cp.async/TMA instruction")
+        if spilled or not entries:
+            raise AssertionError(f"{name}: ptxas reports spills (or no "
+                                 f"kernel): {spilled or logs[name]}")
 
     results = {"gpu": smi, "build_s": build_s, "flash_sm90_hgmma": hgmma,
+               "gcn_builds": gcn,
                "kernel_cases": [], "fused_cases": [], "flash_cases": []}
     spmm_rows = phase_kernels(results)
     fused_row = phase_fused(results)
@@ -1000,6 +1112,13 @@ def main() -> int:
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}
 
+    def gcn_numbers(row):
+        # the GCN rows add their device time, factors and launch plan
+        return dict(numbers(row), **{k: row[k] for k in (
+            "device_ms", "library_device_ms", "vs_library",
+            "device_vs_library", "bound_share") if k in row},
+            plan=row.get("plan") or row.get("plans"))
+
     shape_keys = ("nrb", "K", "B", "ncb", "D", "F", "dtype", "row_k")
     serve, bwd = spmm_rows["serve"], spmm_rows["train_bwd"]
     train_spmm = trained["launches"]["block_ell_spmm"]
@@ -1011,17 +1130,17 @@ def main() -> int:
         "also_replaces": "src/repro/kernels/block_spmm.py:132",
         "launches": train_spmm + serve_launches,
         "launches_by_path": {"train": train_spmm, "serve": serve_launches},
-        **numbers(serve),
+        **gcn_numbers(serve),
         "shape": {k: serve[k] for k in shape_keys if k in serve},
-        "train_bwd": dict(numbers(bwd), shape={k: bwd[k] for k in shape_keys
-                                               if k in bwd}),
+        "train_bwd": dict(gcn_numbers(bwd), shape={
+            k: bwd[k] for k in shape_keys if k in bwd}),
     }, {
         "name": "block_ell_spmm_fused",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_ell_spmm_fused.cu",
         "replaces": "src/repro/kernels/block_spmm.py:254",
         "launches": trained["launches"]["block_ell_spmm_fused"],
-        **numbers(fused_row),
+        **gcn_numbers(fused_row),
         "function_flops": fused_row["function_flops"],
         "kernel_flops": fused_row["kernel_flops"],
         "shape": {k: fused_row[k] for k in shape_keys if k in fused_row},

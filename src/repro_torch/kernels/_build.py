@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `lib<name>-<hash>.so` under the build directory, then loaded with
 ctypes: no PyTorch headers, so a build takes seconds. Builds happen at
 first use (never at import, so CPU-only hosts import every module), are
-keyed on the source's content and the flags, and are published by an
-atomic rename, so a stale or half-written library is never loaded.
+keyed on the source's content, the `csrc/*.cuh` headers and the flags,
+and are published by an atomic rename, so a stale or half-written
+library is never loaded.
 
 Build directory: $REPRO_TORCH_BUILD_DIR, else `build/` next to this file.
 nvcc: $NVCC, else `nvcc` on PATH, else $CUDA_HOME/bin/nvcc (CUDA_HOME
@@ -39,7 +40,8 @@ class BuildResult:
     name: str
     path: pathlib.Path
     seconds: float
-    log: str          # nvcc's output (ptxas register/shared-memory report)
+    log: str          # nvcc's output (ptxas register/spill report), kept
+                      # beside the library and read back when cached
     cached: bool      # the library was already built from this source
 
 
@@ -66,9 +68,18 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:16]}.so"
+    """Where the library of `csrc/<name>.cu` is built: keyed on that
+    source, every header in `csrc/` (a source may include any of them)
+    and the flags, so an edited header never reloads a stale build."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _log_path(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_name(lib.name + ".log")
 
 
 def build(names: Sequence[str] = SOURCES) -> List[BuildResult]:
@@ -82,7 +93,9 @@ def build(names: Sequence[str] = SOURCES) -> List[BuildResult]:
     for name in names:
         path = library_path(name)
         if path.exists():
-            results.append(BuildResult(name, path, 0.0, "", True))
+            log = _log_path(path)
+            results.append(BuildResult(name, path, 0.0, log.read_text()
+                                       if log.exists() else "", True))
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=out_dir)
         os.close(fd)
@@ -100,6 +113,8 @@ def build(names: Sequence[str] = SOURCES) -> List[BuildResult]:
             failures.append(f"nvcc failed for {name}.cu "
                             f"(rc {proc.returncode}):\n{log}")
             continue
+        _log_path(tmp).write_text(log)
+        _log_path(tmp).replace(_log_path(path))
         tmp.replace(path)
         results.append(BuildResult(name, path, seconds, log, False))
     if failures:

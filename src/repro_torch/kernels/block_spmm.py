@@ -9,8 +9,13 @@ Two hand-written Hopper kernels, each with a plain PyTorch version
   * `spmm_fused_block_ell`: y = Â·(XW + 1bᵀ)
     (`csrc/block_ell_spmm_fused.cu`), the port of `_spmm_fused_kernel`.
 
-CUDA tensors launch the kernel or raise; CPU tensors take the plain
-version. There is no fallback between the two.
+Both run on one fp32 tile mainloop (`csrc/block_tile.cuh`: 128-row
+output tiles, a 4-stage cp.async ring, 8 x 16 register tiles, the
+contraction split so that every shape fills the SMs, fixed-order
+reduction of the split partials). The wrapper plans each launch
+(`plan_tiles`, `copy_width`) and allocates its workspace. CUDA tensors
+launch the kernel or raise; CPU tensors take the plain version. There is
+no fallback between the two.
 
 Format (host-built, see ops.py):
   blocks:     (nrb, K, B, B)  dense value tiles, zero-padded
@@ -31,10 +36,11 @@ checks its indices before every launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,13 +51,184 @@ from repro_torch.kernels.ref import spmm_block_ell_ref, spmm_fused_ref
 # kernel launches since import (or since a caller reset it): a run shows
 # it went through a kernel by reading these before and after
 LAUNCHES = 0           # block_ell_spmm (y = Â·X)
-LAUNCHES_FUSED = 0     # block_ell_spmm_fused (y = Â·(XW + b))
+LAUNCHES_FUSED = 0     # block_ell_spmm_fused (y = Â·(XW + b)), one per call
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE_M, _TILE_N = 64, 64          # block_ell_spmm.cu's output tile
-_FUSED_ROWS = 128                  # block_ell_spmm_fused.cu's output rows
-_FUSED_MAX_B = 512                 # its XW tile (B x 64 fp32) in shared memory
 _MAX_GRID_Y = 65535
+
+
+# ----------------------------------------------------------------------
+# launch planning for the tile mainloop (csrc/block_tile.cuh)
+# ----------------------------------------------------------------------
+_TILE_M = 128            # output rows per CTA
+_CHUNK = 16              # contraction depth per pipeline stage
+_MAX_SPLITS = 64
+# The split cost model, in units of one 16-deep chunk of a 128 x 128 tile
+# (≈2.2 µs of an SM shared by two CTAs, fp32, H100). A 128 x 64 chunk costs
+# half. An SM holds `_RESIDENT` CTAs at once (registers and shared memory);
+# CTAs resident together share its rate, a CTA alone on an SM runs at 1/1.5
+# of the shared rate per CTA (too few warps to hide latency), and the
+# busiest SM (ceil(ctas / sms) CTAs) sets the time; each CTA adds 0.5 for
+# its pipeline fill and epilogue, overlapped across the resident ones. With
+# splits, the reduction kernel adds 0.5 and reads every fp32 partial back
+# (≈1.1 µs per 3 MB). Fitted to split sweeps on an H100 at the ppi_sota
+# serving and training shapes.
+_CHUNK_COST = {128: 1.0, 64: 0.5}
+_RESIDENT = {128: 2, 64: 3}
+_ALONE = 1.5
+_CTA_COST = 0.5
+_REDUCE_COST = 0.5
+_PARTIAL_ELEM_COST = 6.5e-7
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How one launch of the tile mainloop covers its output."""
+    tile_n: int          # output columns per CTA: 128, or 64
+    splits: int          # ranges of the contraction (blockIdx.z)
+    copy_bytes: int      # 16 / 4: cp.async width; 0: synchronous loads
+    ctas: int            # CTAs of the main kernel
+    partial_elems: int   # fp32 workspace of the split partials (0: none)
+
+
+def copy_width(dtype: torch.dtype, widths, ptrs) -> int:
+    """The copy mode block_tile.cuh takes for operands whose rows are
+    `widths` elements long and whose bases are at `ptrs`: 16-byte
+    cp.async where every row and base is 16-byte aligned, 4-byte
+    cp.async where they are 4-byte aligned (fp32 always; bf16 of even
+    widths), else 0: synchronous loads (bf16 rows of odd width)."""
+    es = _ESIZE[dtype]
+    for mode in (16, 4):
+        if all(w * es % mode == 0 for w in widths) and \
+                all(p % mode == 0 for p in ptrs):
+            return mode
+    return 0
+
+
+def _busiest_sm_cost(n: int, per: int, tile_n: int) -> float:
+    """Time for an SM that runs `n` CTAs of `per` chunks each: in rounds
+    of up to _RESIDENT[tile_n] CTAs sharing it; a last round of one CTA
+    runs alone."""
+    resident, unit = _RESIDENT[tile_n], per * _CHUNK_COST[tile_n]
+    full, last = divmod(n, resident)
+    return full * resident * unit + n * _CTA_COST / resident + (
+        0.0 if last == 0 else unit * (_ALONE if last == 1 else last))
+
+
+def plan_tiles(m_tiles: int, rows: int, n: int, chunks: int, copy: int,
+               sms: int) -> TilePlan:
+    """Tile width and split count for an output of `m_tiles` 128-row
+    tiles (`rows` rows in all) by `n` columns over `chunks` 16-deep
+    contraction chunks, on a card of `sms` SMs. Plans that launch at
+    least `sms` CTAs come first; among them the least cost by the model
+    above, then the fewest splits. Pure: the same shape gives the same
+    plan, hence the same summation order."""
+    best = None
+    for tile_n in (128, 64):
+        tiles = m_tiles * -(-n // tile_n)
+        for s in range(1, max(1, min(chunks, _MAX_SPLITS)) + 1):
+            per = -(-chunks // s)
+            splits = -(-chunks // per) if per else 1
+            ctas = tiles * splits
+            cost = _busiest_sm_cost(-(-ctas // sms), per, tile_n)
+            if splits > 1:
+                cost += _REDUCE_COST + _PARTIAL_ELEM_COST * splits * rows * n
+            key = (ctas < sms, round(cost, 9), splits, tile_n != 128)
+            if best is None or key < best[0]:
+                best = (key, TilePlan(tile_n, splits, copy, ctas,
+                                      splits * rows * n if splits > 1
+                                      else 0))
+    return best[1]
+
+
+def _low_bits(ptrs) -> int:
+    """The base addresses' bits below 16: all that `copy_width` reads of
+    them, so plans can be cached on it."""
+    low = 0
+    for p in ptrs:
+        low |= p & 15
+    return low
+
+
+def spmm_plan(nrb: int, K: int, B: int, F: int, dtype: torch.dtype,
+              ptrs, sms: int) -> TilePlan:
+    """The block-ELL SpMM's plan: A is each slot's (B, B) tile, the
+    contraction K slots of ceil(B/16) chunks; `ptrs` are the bases of
+    the tiles and of x."""
+    return _spmm_plan(nrb, K, B, F, dtype, _low_bits(ptrs), sms)
+
+
+def xw_plan(M: int, D: int, F: int, dtype: torch.dtype, ptrs,
+            sms: int) -> TilePlan:
+    """The fused product's stage (a), XW + b over M rows of x; `ptrs`
+    are the bases of x and w."""
+    return _xw_plan(M, D, F, dtype, _low_bits(ptrs), sms)
+
+
+# cached: a training step plans the same few shapes on every call, and
+# planning costs microseconds of host time beside ~20 µs launches
+@functools.lru_cache(maxsize=4096)
+def _spmm_plan(nrb, K, B, F, dtype, low, sms) -> TilePlan:
+    return plan_tiles(nrb * -(-B // _TILE_M), nrb * B, F, K * -(-B // _CHUNK),
+                      copy_width(dtype, (B, F), (low,)), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _xw_plan(M, D, F, dtype, low, sms) -> TilePlan:
+    return plan_tiles(-(-M // _TILE_M), M, F, -(-D // _CHUNK),
+                      copy_width(dtype, (D, F), (low,)), sms)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def _on(device: torch.device):
+    """The device context of a launch: none when `device` is current
+    (entering one costs microseconds on every call)."""
+    if device.type != "cuda" or device.index is None or \
+            torch.cuda.device_count() == 1 or \
+            device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as a pointer (the raw getter
+    skips building a Stream object: several microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+# the fp32 split partials per (device, stream), kept between launches
+_WORKSPACE: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
+
+
+def _partials(x: torch.Tensor, stream: int, elems: int) -> Optional[int]:
+    """A pointer to `elems` fp32 of split partials on the stream (None
+    for none). The buffer is allocated here, with torch on x's device,
+    grown when a launch needs more and reused otherwise: launches on one
+    stream run in order, so they can share it, and allocating one per
+    call costs microseconds on the host."""
+    if not elems:
+        return None
+    key = (x.device.index, stream)
+    part = _WORKSPACE.get(key)
+    if part is None or part.numel() < elems:
+        part = _WORKSPACE[key] = x.new_empty(elems, dtype=torch.float32)
+    return part.data_ptr()
+
+
+def _check_grid(plan: TilePlan, m_tiles: int, n: int) -> None:
+    if -(-n // plan.tile_n) > _MAX_GRID_Y or m_tiles >= 2 ** 31:
+        raise ValueError(f"shape too large for one launch: {m_tiles} row "
+                         f"tiles of 128, {n} columns")
 
 
 # ----------------------------------------------------------------------
@@ -138,7 +315,8 @@ def _check_cols(cols: torch.Tensor, n_blocks: int, what: str) -> None:
 @functools.cache
 def _kernel_fns():
     lib = _build.load("block_ell_spmm")
-    argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p])
     fns = {}
     for dtype, sym in ((torch.float32, "block_ell_spmm_f32"),
                        (torch.bfloat16, "block_ell_spmm_bf16")):
@@ -220,17 +398,19 @@ def _launch(blocks: torch.Tensor, block_cols: torch.Tensor,
     global LAUNCHES
     nrb, K, B, _ = blocks.shape
     F = x.shape[1]
-    row_tiles = -(-B // _TILE_M)
-    if -(-F // _TILE_N) > _MAX_GRID_Y or nrb * row_tiles >= 2 ** 31:
-        raise ValueError(f"shape too large for one launch: nrb={nrb}, "
-                         f"B={B}, F={F}")
+    plan = spmm_plan(nrb, K, B, F, x.dtype, (blocks.data_ptr(), x.data_ptr()),
+                     _sms(x.device))
+    _check_grid(plan, nrb * -(-B // _TILE_M), F)
     fns, err_str = _kernel_fns()
-    y = torch.empty((nrb * B, F), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    y = x.new_empty((nrb * B, F))
+    with _on(x.device):
+        stream = _stream(x.device)
         err = fns[x.dtype](blocks.data_ptr(), block_cols.data_ptr(),
                            None if row_k is None else row_k.data_ptr(),
-                           x.data_ptr(), y.data_ptr(), nrb, K, B, F, stream)
+                           x.data_ptr(), y.data_ptr(),
+                           _partials(x, stream, plan.partial_elems),
+                           nrb, K, B, F, plan.tile_n, plan.splits,
+                           plan.copy_bytes, stream)
     if err:
         raise RuntimeError(f"block_ell_spmm launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
@@ -244,7 +424,7 @@ def _launch(blocks: torch.Tensor, block_cols: torch.Tensor,
 @functools.cache
 def _fused_fns():
     lib = _build.load("block_ell_spmm_fused")
-    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                 + [ctypes.c_void_p])
     fns = {}
     for dtype, sym in ((torch.float32, "block_ell_spmm_fused_f32"),
@@ -283,7 +463,8 @@ def spmm_fused_block_ell(blocks: torch.Tensor, block_cols: torch.Tensor,
                          b: Optional[torch.Tensor] = None, *,
                          row_k: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """y = A @ (x @ w + b) with A in block-ELL form, in one kernel.
+    """y = A @ (x @ w + b) with A in block-ELL form, in one call (XW + b
+    once per row of x into a scratch, then the block-ELL SpMM over it).
     Returns (nrb*B, F) in x's dtype. Precision as in the reference's
     `_fused_apply`: the tiles and w are cast to x's dtype, XW and the
     aggregation accumulate in fp32, b (fp32) is added to the fp32 XW,
@@ -316,28 +497,36 @@ def _spmm_fused(blocks, block_cols, x, w, b, row_k, *, cols_checked: bool):
 
 
 def _launch_fused(blocks, block_cols, x, w, b, row_k) -> torch.Tensor:
-    """Launch the fused CUDA kernel on validated operands (blocks and w
-    in x's dtype, b fp32 or None) on the current stream."""
+    """Launch the fused product (stage (a) XW + b into a scratch of x's
+    dtype, stage (b) the block-ELL SpMM over it: one C call, one count)
+    on validated operands (blocks and w in x's dtype, b fp32 or None) on
+    the current stream."""
     global LAUNCHES_FUSED
     nrb, K, B, _ = blocks.shape
-    D, F = w.shape
-    if B > _FUSED_MAX_B:
-        raise ValueError(f"the fused kernel keeps a (B, 64) XW tile in "
-                         f"shared memory and takes B <= {_FUSED_MAX_B}; "
-                         f"got B={B}")
-    row_tiles = -(-B // _FUSED_ROWS)
-    if -(-F // _TILE_N) > _MAX_GRID_Y or nrb * row_tiles >= 2 ** 31:
-        raise ValueError(f"shape too large for one launch: nrb={nrb}, "
-                         f"B={B}, F={F}")
+    M, D = x.shape
+    F = w.shape[1]
+    sms = _sms(x.device)
+    plan_a = xw_plan(M, D, F, x.dtype, (x.data_ptr(), w.data_ptr()), sms)
+    _check_grid(plan_a, -(-M // _TILE_M), F)
     fns, err_str = _fused_fns()
-    y = torch.empty((nrb * B, F), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    xw = x.new_empty((M, F))
+    plan_b = spmm_plan(nrb, K, B, F, x.dtype,
+                       (blocks.data_ptr(), xw.data_ptr()), sms)
+    _check_grid(plan_b, nrb * -(-B // _TILE_M), F)
+    y = x.new_empty((nrb * B, F))
+    with _on(x.device):
+        stream = _stream(x.device)
+        part = _partials(x, stream, max(plan_a.partial_elems,
+                                        plan_b.partial_elems))
         err = fns[x.dtype](blocks.data_ptr(), block_cols.data_ptr(),
                            None if row_k is None else row_k.data_ptr(),
                            x.data_ptr(), w.data_ptr(),
                            None if b is None else b.data_ptr(),
-                           y.data_ptr(), nrb, K, B, D, F, stream)
+                           y.data_ptr(), xw.data_ptr(), part,
+                           nrb, K, B, M, D, F,
+                           plan_a.tile_n, plan_a.splits, plan_a.copy_bytes,
+                           plan_b.tile_n, plan_b.splits, plan_b.copy_bytes,
+                           stream)
     if err:
         raise RuntimeError(f"block_ell_spmm_fused launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")

@@ -111,8 +111,8 @@ def _fused_operands(nrb, K, B, ncb, D, F, dtype, live, seed):
 @pytest.mark.parametrize("B,D,F", [(8, 1, 121), (16, 121, 1),
                                    (128, 50, 200), (200, 33, 70)])
 def test_fused_kernel_matches_plain_version(cuda, B, D, F, dtype, live):
-    """B 200 runs two 128-row output tiles per row-block and needs more
-    than 48 KB of shared memory (the opt-in attribute path)."""
+    """B 200 runs two 128-row output tiles per row-block; odd bf16
+    widths (D or F 1 and 121) take the synchronous copy path."""
     from repro_torch.kernels import block_spmm
     from repro_torch.kernels.ref import spmm_fused_ref
     blocks, cols, x, w, b, row_k = _fused_operands(3, 4, B, 5, D, F, dtype,
@@ -126,6 +126,69 @@ def test_fused_kernel_matches_plain_version(cuda, B, D, F, dtype, live):
     want = spmm_fused_ref(*args).float()
     err = float((y.float() - want).abs().max())
     assert err <= TOL[dtype] * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,F", [(50, 2048), (2048, 121)])
+def test_fused_kernel_at_the_outer_training_layers(cuda, D, F, dtype):
+    """ppi_sota's first layer (x rows of 50: the 4-byte copy path) and
+    its last (a 121-wide output: 64-wide tiles, the slot loop split
+    over many CTAs), nrb 3 x K 3 slots of B 128, all slots live."""
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels.ref import spmm_fused_ref
+    blocks, cols, x, w, b, _ = _fused_operands(3, 3, 128, 3, D, F, dtype,
+                                               False, seed=D + F)
+    args = [t.to(cuda) for t in (blocks, cols, x, w, b)]
+    rk = torch.full((3,), 3, dtype=torch.int32, device=cuda)
+    y = block_spmm.spmm_fused_block_ell(*args, row_k=rk)
+    torch.cuda.synchronize()
+    want = spmm_fused_ref(*args).float()
+    err = float((y.float() - want).abs().max())
+    assert err <= TOL[dtype] * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("F", [2048, 121])
+def test_kernel_with_row_k_and_an_empty_row_block(cuda, F):
+    """The training shape with row_k = (2, 0, 3): the empty row-block's
+    splits own no live slot and must still write zeros."""
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels.ref import spmm_block_ell_ref
+    blocks, cols, x, _ = _operands(3, 3, 128, 3, F, torch.float32, False,
+                                   seed=F)
+    row_k = torch.tensor([2, 0, 3], dtype=torch.int32)
+    for i in range(3):
+        blocks[i, int(row_k[i]):] = 0
+        cols[i, int(row_k[i]):] = 0
+    args = [t.to(cuda) for t in (blocks, cols, x)]
+    y = block_spmm.spmm_block_ell(*args, row_k=row_k.to(cuda))
+    torch.cuda.synchronize()
+    assert not y[128:256].any()
+    want = spmm_block_ell_ref(*args).float()
+    err = float((y.float() - want).abs().max())
+    assert err <= TOL[torch.float32] * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["spmm_2048", "spmm_121", "fused"])
+def test_split_products_are_bitwise_repeatable(cuda, case):
+    """Split contractions sum their fp32 partials in a fixed order: the
+    same inputs give bitwise the same output on every call."""
+    from repro_torch.kernels import block_spmm
+    sms = block_spmm._sms(cuda)
+    if case == "fused":
+        ops = [t.to(cuda) for t in _fused_operands(
+            3, 3, 128, 3, 2048, 2048, torch.float32, False, seed=5)[:5]]
+        plan = block_spmm.xw_plan(384, 2048, 2048, torch.float32, (0, 0), sms)
+        run = lambda: block_spmm.spmm_fused_block_ell(*ops)  # noqa: E731
+    else:
+        F = 2048 if case == "spmm_2048" else 121
+        ops = [t.to(cuda) for t in _operands(3, 3, 128, 3, F, torch.float32,
+                                             False, 5)[:3]]
+        plan = block_spmm.spmm_plan(3, 3, 128, F, torch.float32, (0, 0), sms)
+        run = lambda: block_spmm.spmm_block_ell(*ops)  # noqa: E731
+    assert plan.splits > 1
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
 
 
 def test_fused_kernel_rejects_out_of_range_columns(cuda):
