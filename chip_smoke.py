@@ -79,6 +79,34 @@ this script. Phases, each of which must pass (no failure is caught):
    reference's 1e-2 (PERF.md). Then warm prefill and decode-step
    times, and one prefill and four decode steps under torch.profiler
    (device time by kernel, idle share).
+9. Cold-start serving: `serve_gcn.main` on an EMPTY checkpoint directory
+   (ppi_sota, 1 epoch, block-ELL, fused, node_cap 384, 256 queries,
+   --verify-parity) trains first, then serves: exactly 5 fused and 5
+   block-ELL launches per training step plus non-empty clusters x 5
+   propagations for the precompute, a checkpoint written, and the
+   served logits against the host oracle within phase 6's bound.
+10. GraphSAINT training at ppi_sota's width and depth (5 x 2048, the
+   14,000-node stand-in, block-ELL, fused, node_cap 384) through
+   `run_experiment.main`: `saint_node` for 2 epochs (budget 280 draws,
+   50 steps an epoch) and `saint_edge` for 1 epoch (budget 140 edge
+   draws, 1,347 steps): exactly 5 fused and 5 block-ELL launches per
+   step, finite losses, the node sampler's loss falling from epoch 1
+   to 2, peak device memory. Then the step split (host build, copy,
+   step; medians of 20) and the tile occupancy of SAINT batches (mean
+   live K slots per row-block, block fill) against the cluster batches
+   of phase 3, and one-step GPU vs CPU parity on a SAINT batch
+   (fractional loss weights) under phase 4's bounds.
+11. The paper's baselines at ppi_sota's widths (5 x 2048, the same
+   graph, AdamW 1e-2, batch 512, their default eq10 normalisation):
+   full-batch GCN for 3 epochs, then exact L-hop SGD, GraphSAGE
+   (fanouts 25/10/10/10/10) and VR-GCN for 1 epoch each (18 steps):
+   finite losses, seconds per epoch and peak device memory
+   (`reset_peak_memory_stats` before each run, `max_memory_allocated`
+   after), VR-GCN's host history exactly N x 2048 x 4 layers x 4 bytes;
+   one table of them beside the Cluster-GCN run of phase 3 and the
+   saint_node run of phase 10. Then one full-batch step GPU vs CPU
+   from the same params (dropout 0; `index_add` sums with atomics on
+   the card): loss within 1e-4 relative.
 
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
@@ -118,6 +146,11 @@ GCN_LIBS = ("block_ell_spmm", "block_ell_spmm_fused")
 SERVE_TOL = 1e-4
 STEP_TOL = 1e-4
 TRAIN_SETS = ["batch.sparse_adj=true", "model.fuse_spmm=true"]
+# the GraphSAINT runs of phase 10: the same model and kernels, i.i.d.
+# subgraph batches (default budget: 280 node draws, 140 edge draws)
+SAINT_SETS = TRAIN_SETS + ["batch.node_cap=384"]
+SAINT_RUNS = (("saint_node", 2), ("saint_edge", 1))
+BASELINE_BATCH = 512
 # llama3.2-1b prefill: B 4, Hq 32 over Hkv 8, T 2048, head dim 64, bf16
 FLASH_MAIN = dict(B=4, Hq=32, Hkv=8, Tq=2048, Tk=2048, D=64)
 LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
@@ -173,6 +206,23 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _reset_peak_memory() -> int:
+    """Start a peak-memory window; returns the bytes allocated at its
+    start (tensors earlier phases still hold)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_memory(start: int) -> dict:
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return dict(peak_gib=peak / 2 ** 30,
+                above_start_gib=(peak - start) / 2 ** 30)
 
 
 def _case_inputs(nrb, K, B, ncb, F, dtype, row_k_mode, seed):
@@ -465,6 +515,7 @@ def phase_train(results: dict, work: pathlib.Path) -> dict:
     argv = _train_argv(work, "train", TRAIN_SETS + [
         "run.epochs=2", "run.eval_every=2", f"run.checkpoint_dir={ck}"])
     print(f"[train] run_experiment {' '.join(argv)}")
+    mem0 = _reset_peak_memory()
     t0 = time.perf_counter()
     # --- the main path: every launch count starts at 0 here -------------
     block_spmm.LAUNCHES = 0
@@ -474,6 +525,7 @@ def phase_train(results: dict, work: pathlib.Path) -> dict:
                 "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
     # ---------------------------------------------------------------------
     wall = time.perf_counter() - t0
+    memory = _peak_memory(mem0)
     if rc != 0:
         raise AssertionError(f"run_experiment returned {rc}")
     metrics = json.loads((work / "train" / "ppi_sota" / "metrics.json")
@@ -490,7 +542,9 @@ def phase_train(results: dict, work: pathlib.Path) -> dict:
     results["train"] = dict(steps=steps, wall_s=wall, launches=launches,
                             history=metrics["history"],
                             final=metrics["final"],
-                            seconds=metrics["seconds"])
+                            seconds=metrics["seconds"], **memory)
+    print(f"[train] peak device memory {memory['peak_gib']:.3f} GiB "
+          f"({memory['above_start_gib']:.3f} GiB above the start)")
     if steps != 100 or launches["block_ell_spmm_fused"] != 5 * steps \
             or launches["block_ell_spmm"] != 5 * steps:
         raise AssertionError(f"expected 100 steps with 5 launches of each "
@@ -501,32 +555,59 @@ def phase_train(results: dict, work: pathlib.Path) -> dict:
     return dict(launches=launches, checkpoint=ck)
 
 
+def _spec_args(sets):
+    """ppi_sota with `--set` overrides, as the CLIs parse them."""
+    import argparse
+    return argparse.Namespace(preset="ppi_sota", spec=None, set=list(sets))
+
+
 def _step_parts(spec_sets):
     from repro_torch.core.experiment import build_experiment
     from repro_torch.launch.run_experiment import load_spec
-    import argparse
-    args = argparse.Namespace(preset="ppi_sota", spec=None, set=spec_sets)
-    return build_experiment(load_spec(args), device="cuda")
+    return build_experiment(load_spec(_spec_args(spec_sets)), device="cuda")
 
 
-def phase_step_profile(results: dict) -> None:
+def _occupancy(batches) -> dict:
+    """Tile occupancy of block-ELL batches: live K slots per row-block
+    (row_k, forward; row_k_t, transposed) against the K they are padded
+    to, and the nonzero share of the live tiles."""
+    import numpy as np
+    rk, rkt, fill = [], [], []
+    for b in batches:
+        adj = b.adj
+        B = adj.blocks.shape[-1]
+        live = adj.row_k.numpy()
+        rk.append(float(live.mean()))
+        rkt.append(float(adj.row_k_t.numpy().mean()))
+        fill.append(float((adj.blocks != 0).sum()) / max(1, live.sum() * B * B))
+    nrb, K = adj.blocks.shape[:2]
+    return dict(batches=len(rk), nrb=int(nrb), K=int(K),
+                mean_live_k=float(np.mean(rk)),
+                mean_live_k_t=float(np.mean(rkt)),
+                live_tile_fill=float(np.mean(fill)))
+
+
+def phase_step_profile(results: dict, sets=TRAIN_SETS, key="train_step",
+                       tag="step") -> None:
     """Where a training step's time goes: host batch build, the
     payload's copy to the device, and the step (medians over an epoch's
-    first 20 steps, each part synchronised), and one step under
-    torch.profiler."""
+    first 20 steps, each part synchronised), the tile occupancy of those
+    20 batches, and one step under torch.profiler."""
     import numpy as np
     import torch
     from repro_torch.core.batching import batch_to_device
 
-    exp = _step_parts(TRAIN_SETS)
+    exp = _step_parts(sets)
     backend, engine = exp.engine.backend, exp.engine
     state = engine.init_state()
-    build, copy, step = [], [], []
+    build, copy, step, hosts = [], [], [], []
     it = iter(exp.batcher.epoch(0))
     for _ in range(20):
         t0 = time.perf_counter()
-        payload = next(it).astuple()
+        batch = next(it)
+        payload = batch.astuple()
         build.append(time.perf_counter() - t0)
+        hosts.append(batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         payload = batch_to_device(payload, "cuda")
@@ -536,19 +617,27 @@ def phase_step_profile(results: dict) -> None:
         state, loss, _ = backend.step(state, payload)
         torch.cuda.synchronize()
         step.append(time.perf_counter() - t0)
+    occ = _occupancy(hosts)
     payload = batch_to_device(next(it).astuple(), "cuda")
     prof = _profile(lambda: backend.step(state, payload), top_n=8)
-    results["train_step"] = dict(
+    results[key] = dict(
         host_build_ms=float(np.median(build)) * 1e3,
         copy_ms=float(np.median(copy)) * 1e3,
-        step_ms=float(np.median(step)) * 1e3, profiled_step=prof)
-    print(f"[step] host batch build {np.median(build) * 1e3:.3f} ms, "
+        step_ms=float(np.median(step)) * 1e3, occupancy=occ,
+        profiled_step=prof)
+    print(f"[{tag}] host batch build {np.median(build) * 1e3:.3f} ms, "
           f"copy to device {np.median(copy) * 1e3:.3f} ms, step "
           f"{np.median(step) * 1e3:.3f} ms (medians of 20, synchronised)")
-    _print_profile("step: one step profiled", prof)
+    print(f"[{tag}] tile occupancy of those 20 batches: "
+          f"{occ['mean_live_k']:.3f} live of K {occ['K']} slots per "
+          f"row-block (transposed {occ['mean_live_k_t']:.3f}), nrb "
+          f"{occ['nrb']}, live tiles {100 * occ['live_tile_fill']:.2f}% "
+          f"nonzero")
+    _print_profile(f"{tag}: one step profiled", prof)
 
 
-def phase_step_parity(results: dict) -> None:
+def phase_step_parity(results: dict, sets=TRAIN_SETS, key="step_parity",
+                      tag="parity") -> None:
     """One gcn_loss + backward, same params and batch (dropout 0), on the
     GPU (kernels) and on the CPU (plain versions)."""
     import dataclasses
@@ -558,7 +647,7 @@ def phase_step_parity(results: dict) -> None:
     from repro_torch.kernels import block_spmm
     from repro_torch.nn.tree import tree_leaves, tree_map
 
-    exp = _step_parts(TRAIN_SETS)
+    exp = _step_parts(sets)
     cfg = dataclasses.replace(exp.cfg, dropout=0.0)
     params = init_params(cfg, generator=torch.Generator().manual_seed(3),
                          device="cpu")
@@ -582,20 +671,22 @@ def phase_step_parity(results: dict) -> None:
         bound = STEP_TOL * max(1.0, float(gc.abs().max()))
         err = float((gg - gc).abs().max())
         worst = max(worst, err / bound)
-    results["step_parity"] = dict(loss_gpu=out["cuda"][0],
-                                  loss_cpu=out["cpu"][0],
-                                  loss_rel_err=loss_err,
-                                  worst_grad_err_over_bound=worst,
-                                  launches_gpu=out["cuda"][2],
-                                  launches_cpu=out["cpu"][2])
-    print(f"[parity] one step GPU vs CPU: loss {out['cuda'][0]:.6f} vs "
+    loss_mask = host[4]
+    results[key] = dict(loss_gpu=out["cuda"][0], loss_cpu=out["cpu"][0],
+                        loss_rel_err=loss_err,
+                        worst_grad_err_over_bound=worst,
+                        launches_gpu=out["cuda"][2],
+                        launches_cpu=out["cpu"][2],
+                        loss_weights_fractional=bool(
+                            ((loss_mask != 0) & (loss_mask != 1)).any()))
+    print(f"[{tag}] one step GPU vs CPU: loss {out['cuda'][0]:.6f} vs "
           f"{out['cpu'][0]:.6f} (rel {loss_err:.3e}, bound {STEP_TOL}); "
           f"worst grad err / bound {worst:.3f}; launches GPU "
           f"{out['cuda'][2]}, CPU {out['cpu'][2]}")
     if not loss_err <= STEP_TOL or not worst <= 1.0 \
             or out["cuda"][2] != (5, 5) or out["cpu"][2] != (0, 0):
         raise AssertionError(f"GPU step disagrees with the CPU step: "
-                             f"{results['step_parity']}")
+                             f"{results[key]}")
 
 
 def phase_unfused(results: dict, work: pathlib.Path) -> None:
@@ -660,13 +751,41 @@ def _breakdown(engine, results: dict) -> None:
           f"{np.median(step) * 1e3:.3f} ms (medians of 5)")
 
 
+def _served_parity(engine, results: dict, key: str, tag: str):
+    """Logits served from the engine's warm cache for 2048 random ids
+    against the host oracle `full_graph_logits`: max|Δ| <= 1e-4·max(1,
+    max|ref|). Returns the ids."""
+    import numpy as np
+    from repro_torch.core.trainer import full_graph_logits
+    if engine.warm() != 0:
+        raise AssertionError("the rebuilt engine did not find the warm "
+                             "cache")
+    n = engine.graph.num_nodes
+    ids = np.random.default_rng(1).choice(n, size=min(2048, n),
+                                          replace=False)
+    served = engine.query(ids).logits
+    t0 = time.perf_counter()
+    ref = full_graph_logits(engine.params, engine.graph, engine.cfg,
+                            norm=engine.norm,
+                            diag_lambda=engine.diag_lambda)
+    oracle_s = time.perf_counter() - t0
+    bound = SERVE_TOL * max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(served - ref[ids]).max())
+    results[key] = dict(ids=len(ids), max_abs_err=err, bound=bound,
+                        oracle_s=oracle_s)
+    print(f"[{tag}] parity vs host oracle over {len(ids)} ids: "
+          f"max|Δ| = {err:.3e} (bound {bound:.3e})")
+    if not err <= bound:
+        raise AssertionError("served logits disagree with the oracle")
+    return ids
+
+
 def phase_serve(results: dict, work: pathlib.Path,
                 ck: pathlib.Path) -> int:
     """Serve the checkpoint in `ck` (the one phase 3 trained)."""
     import numpy as np
     from repro_torch.core.experiment import (build_gcn_config, build_graph,
                                              build_partition, preset)
-    from repro_torch.core.trainer import full_graph_logits
     from repro_torch.kernels import block_spmm
     from repro_torch.launch import serve_gcn
     from repro_torch.runtime.checkpoint import CheckpointManager
@@ -713,27 +832,7 @@ def phase_serve(results: dict, work: pathlib.Path,
 
     # --- parity of the served logits with the host oracle ---------------
     engine = ServeEngine.from_checkpoint(spec, str(ck), device="cuda")
-    if engine.warm() != 0:
-        raise AssertionError("the rebuilt engine did not find the warm "
-                             "cache")
-    rng = np.random.default_rng(1)
-    ids = rng.choice(graph.num_nodes, size=min(2048, graph.num_nodes),
-                     replace=False)
-    served = engine.query(ids).logits
-    t0 = time.perf_counter()
-    ref = full_graph_logits(engine.params, engine.graph, engine.cfg,
-                            norm=engine.norm,
-                            diag_lambda=engine.diag_lambda)
-    oracle_s = time.perf_counter() - t0
-    bound = SERVE_TOL * max(1.0, float(np.abs(ref).max()))
-    err = float(np.abs(served - ref[ids]).max())
-    results["serve_parity"] = dict(ids=len(ids), max_abs_err=err,
-                                   bound=bound, oracle_s=oracle_s)
-    print(f"[serve] parity vs host oracle over {len(ids)} ids: "
-          f"max|Δ| = {err:.3e} (bound {bound:.3e})")
-    if not err <= bound:
-        raise AssertionError("served logits disagree with the oracle")
-
+    ids = _served_parity(engine, results, "serve_parity", "serve")
     _breakdown(engine, results)
 
     # --- lazy halo re-embed of an invalidated cluster --------------------
@@ -1035,6 +1134,227 @@ def phase_lm_serve(results: dict) -> int:
     return launches
 
 
+def _epoch_seconds(history) -> list:
+    """Each epoch's seconds from a history's cumulative `time`."""
+    times = [0.0] + [h["time"] for h in history]
+    return [b - a for a, b in zip(times, times[1:])]
+
+
+def phase_cold_start(results: dict, work: pathlib.Path) -> dict:
+    """Serve ppi_sota from an EMPTY checkpoint directory: serve_gcn
+    trains first (1 epoch, block-ELL, fused), writes the checkpoint,
+    precomputes the cache and answers 256 lookups."""
+    import numpy as np
+    from repro_torch.core.experiment import (build_batcher, build_gcn_config,
+                                             build_graph, build_partition)
+    from repro_torch.kernels import block_spmm
+    from repro_torch.launch import serve_gcn
+    from repro_torch.launch.run_experiment import load_spec
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.serve import ServeEngine
+
+    ck = work / "cold_ck"
+    sets = TRAIN_SETS + ["run.epochs=1", "batch.node_cap=384",
+                         f"serve.cache_dir={work / 'cold_cache'}"]
+    argv = ["--preset", "ppi_sota", "--checkpoint-dir", str(ck),
+            "--queries", "256", "--verify-parity"]
+    for s in sets:
+        argv += ["--set", s]
+    spec = load_spec(_spec_args(sets))
+    graph = build_graph(spec)
+    cfg = build_gcn_config(spec, graph)
+    parts, _ = build_partition(spec, graph)
+    per_epoch = build_batcher(spec, graph, parts).steps_per_epoch()
+    nonempty = int((np.bincount(parts, minlength=spec.partition.num_parts)
+                    > 0).sum())
+    propagations = cfg.num_layers + int(cfg.precompute_ax)
+    if CheckpointManager(str(ck)).latest_valid_step() is not None:
+        raise AssertionError(f"{ck} is not empty")
+    print(f"[cold] serve_gcn {' '.join(argv)}")
+    t0 = time.perf_counter()
+    # --- the main path: every launch count starts at 0 here -------------
+    block_spmm.LAUNCHES = 0
+    block_spmm.LAUNCHES_FUSED = 0
+    rc = serve_gcn.main(argv)
+    launches = {"block_ell_spmm": block_spmm.LAUNCHES,
+                "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+    # ---------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    step = CheckpointManager(str(ck)).latest_valid_step()
+    expected = {"block_ell_spmm": cfg.num_layers * per_epoch
+                + nonempty * propagations,
+                "block_ell_spmm_fused": cfg.num_layers * per_epoch}
+    results["cold_start"] = dict(rc=rc, wall_s=wall, checkpoint_step=step,
+                                 launches=launches, expected=expected)
+    print(f"[cold] rc {rc} in {wall:.2f} s (train 1 epoch + precompute + "
+          f"256 lookups); checkpoint step {step}; launches {launches} "
+          f"(expected {cfg.num_layers} fused + {cfg.num_layers} block-ELL "
+          f"per step x {per_epoch} steps, + {nonempty} clusters x "
+          f"{propagations} propagations: {expected})")
+    if rc != 0 or step != per_epoch or launches != expected:
+        raise AssertionError(f"cold start: {results['cold_start']}")
+    engine = ServeEngine.from_checkpoint(spec, str(ck), device="cuda")
+    _served_parity(engine, results, "cold_start_parity", "cold")
+    return launches
+
+
+def phase_saint(results: dict, work: pathlib.Path) -> dict:
+    """GraphSAINT training of ppi_sota through the CLI, then the step
+    split, tile occupancy and one-step parity on SAINT batches."""
+    import numpy as np
+    from repro_torch.kernels import block_spmm
+    from repro_torch.launch import run_experiment
+
+    launches = {}
+    for sampler, epochs in SAINT_RUNS:
+        argv = _train_argv(work, sampler, SAINT_SETS + [
+            f"batch.sampler={sampler}", f"run.epochs={epochs}",
+            "run.eval_every=0"])
+        print(f"[saint] run_experiment {' '.join(argv)}")
+        mem0 = _reset_peak_memory()
+        t0 = time.perf_counter()
+        # --- the main path: every launch count starts at 0 here ---------
+        block_spmm.LAUNCHES = 0
+        block_spmm.LAUNCHES_FUSED = 0
+        rc = run_experiment.main(argv)
+        got = {"block_ell_spmm": block_spmm.LAUNCHES,
+               "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+        # -----------------------------------------------------------------
+        wall = time.perf_counter() - t0
+        memory = _peak_memory(mem0)
+        metrics = json.loads((work / sampler / "ppi_sota" / "metrics.json")
+                             .read_text())
+        steps = metrics["global_step"]
+        losses = [h["loss"] for h in metrics["history"]]
+        epoch_s = _epoch_seconds(metrics["history"])
+        results[sampler] = dict(rc=rc, steps=steps, wall_s=wall,
+                                launches=got, losses=losses,
+                                epoch_s=epoch_s, final=metrics["final"],
+                                **memory)
+        print(f"[saint] {sampler}: {steps} steps in {wall:.2f} s; epoch "
+              f"losses {losses}; epoch seconds {epoch_s}; launches {got} "
+              f"(expected 5 x {steps} each); peak device memory "
+              f"{memory['peak_gib']:.3f} GiB; final "
+              f"{metrics['final']['split']} micro-F1 "
+              f"{metrics['final']['score']:.4f}")
+        if rc != 0 or steps == 0 or got != {
+                "block_ell_spmm": 5 * steps,
+                "block_ell_spmm_fused": 5 * steps}:
+            raise AssertionError(f"{sampler}: {results[sampler]}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{sampler}: loss not finite: {losses}")
+        if sampler == "saint_node" and not losses[1] < losses[0]:
+            raise AssertionError(f"saint_node: loss not falling: {losses}")
+        launches[sampler] = got
+    for sampler, _ in SAINT_RUNS:
+        phase_step_profile(results, SAINT_SETS + [f"batch.sampler={sampler}"],
+                           key=f"{sampler}_step", tag=f"{sampler} step")
+    cl, node = (results["train_step"]["occupancy"],
+                results["saint_node_step"]["occupancy"])
+    print(f"[saint] live K slots per row-block: cluster batches "
+          f"{cl['mean_live_k']:.3f}, saint_node {node['mean_live_k']:.3f}, "
+          f"saint_edge "
+          f"{results['saint_edge_step']['occupancy']['mean_live_k']:.3f} "
+          f"(of K {cl['K']}); live tiles nonzero: cluster "
+          f"{100 * cl['live_tile_fill']:.2f}%, saint_node "
+          f"{100 * node['live_tile_fill']:.2f}%")
+    key = "saint_step_parity"
+    phase_step_parity(results, SAINT_SETS + ["batch.sampler=saint_node"],
+                      key=key, tag="saint parity")
+    if not results[key]["loss_weights_fractional"]:
+        raise AssertionError("the SAINT batch carries no fractional loss "
+                             "weights")
+    return launches
+
+
+def phase_baselines(results: dict) -> None:
+    """The paper's baselines at ppi_sota's widths on the card: losses,
+    seconds per epoch, peak device memory; then a full-batch step GPU
+    vs CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines
+    from repro_torch.core.experiment import (build_gcn_config, build_graph,
+                                             build_optimizer, preset)
+
+    spec = preset("ppi_sota")
+    graph = build_graph(spec)
+    cfg = build_gcn_config(spec, graph)
+    batch = dict(batch_size=BASELINE_BATCH)
+    runs = (("full_batch", baselines.train_full_batch, 3, {}),
+            ("expansion_sgd", baselines.train_expansion_sgd, 1, batch),
+            ("sage", baselines.train_sage, 1, batch),
+            ("vrgcn", baselines.train_vrgcn, 1, batch))
+    steps = max(1, int(graph.train_mask.sum()) // BASELINE_BATCH)
+    rows = {}
+    for name, fn, epochs, kw in runs:
+        torch.cuda.empty_cache()
+        mem0 = _reset_peak_memory()
+        res = fn(graph, cfg, build_optimizer(spec), epochs, device="cuda",
+                 **kw)
+        memory = _peak_memory(mem0)
+        losses = [h["loss"] for h in res["history"]]
+        epoch_s = _epoch_seconds(res["history"])
+        row = dict(epochs=epochs, steps_per_epoch=1 if name == "full_batch"
+                   else steps, losses=losses, epoch_s=epoch_s,
+                   seconds=res["seconds"], **memory)
+        if name == "vrgcn":
+            want = graph.num_nodes * cfg.hidden_dim * (cfg.num_layers - 1) * 4
+            row.update(history_bytes=res["history_bytes"],
+                       history_bytes_expected=want)
+            print(f"[baselines] vrgcn host history {res['history_bytes']} "
+                  f"bytes (expected N x {cfg.hidden_dim} x "
+                  f"{cfg.num_layers - 1} layers x 4 = {want})")
+            if res["history_bytes"] != want:
+                raise AssertionError("VR-GCN history size")
+        rows[name] = row
+        print(f"[baselines] {name}: losses {losses}; epoch seconds "
+              f"{epoch_s}; peak device memory {memory['peak_gib']:.3f} GiB")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: loss not finite: {losses}")
+        del res
+    results["baselines"] = rows
+
+    train, node = results["train"], results["saint_node"]
+    table = {"cluster_gcn": dict(
+        epochs=2, steps_per_epoch=train["steps"] // 2,
+        epoch_s=[train["history"][0]["time"]], peak_gib=train["peak_gib"],
+        above_start_gib=train["above_start_gib"]),
+        "saint_node": dict(epochs=2, steps_per_epoch=node["steps"] // 2,
+                           epoch_s=node["epoch_s"], peak_gib=node["peak_gib"],
+                           above_start_gib=node["above_start_gib"]),
+        **rows}
+    results["comparison"] = {k: {c: v[c] for c in (
+        "epochs", "steps_per_epoch", "epoch_s", "peak_gib",
+        "above_start_gib")} for k, v in table.items()}
+    print("[compare] ppi_sota 5 x 2048, 14,000 nodes; epoch seconds "
+          "(first epoch, then later ones) and peak device memory")
+    print(f"[compare] {'method':<14} {'epochs':>6} {'steps/ep':>8} "
+          f"{'epoch 1 s':>10} {'later s':>10} {'peak GiB':>9} "
+          f"{'above GiB':>9}")
+    for k, v in table.items():
+        later = (f"{np.mean(v['epoch_s'][1:]):10.3f}"
+                 if len(v["epoch_s"]) > 1 else f"{'-':>10}")
+        print(f"[compare] {k:<14} {v['epochs']:>6} {v['steps_per_epoch']:>8} "
+              f"{v['epoch_s'][0]:10.3f} {later} {v['peak_gib']:9.3f} "
+              f"{v['above_start_gib']:9.3f}")
+
+    # one full-batch step on the card and on the CPU, same init, no dropout
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    loss = {dev: baselines.train_full_batch(
+        graph, cfg0, build_optimizer(spec), 1,
+        device=dev)["history"][0]["loss"] for dev in ("cuda", "cpu")}
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    results["full_batch_parity"] = dict(loss_gpu=loss["cuda"],
+                                        loss_cpu=loss["cpu"], loss_rel_err=rel,
+                                        bound=STEP_TOL)
+    print(f"[baselines] full-batch step GPU vs CPU: loss {loss['cuda']:.6f} "
+          f"vs {loss['cpu']:.6f} (rel {rel:.3e}, bound {STEP_TOL})")
+    if not rel <= STEP_TOL:
+        raise AssertionError(f"full batch: {results['full_batch_parity']}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1101,6 +1421,9 @@ def main() -> int:
         serve_launches = phase_serve(results, work, trained["checkpoint"])
         flash_row = phase_flash(results)
         lm_launches = phase_lm_serve(results)
+        cold_launches = phase_cold_start(results, work)
+        saint_launches = phase_saint(results, work)
+        phase_baselines(results)
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
@@ -1121,15 +1444,25 @@ def main() -> int:
 
     shape_keys = ("nrb", "K", "B", "ncb", "D", "F", "dtype", "row_k")
     serve, bwd = spmm_rows["serve"], spmm_rows["train_bwd"]
-    train_spmm = trained["launches"]["block_ell_spmm"]
+    def by_path(name):
+        # the GCN paths that launch the kernel `name`, each counted from 0
+        paths = {"train": trained["launches"][name],
+                 "cold_start": cold_launches[name],
+                 **{s: n[name] for s, n in saint_launches.items()}}
+        if name == "block_ell_spmm":
+            paths["serve"] = serve_launches
+        return paths
+
+    spmm_paths = by_path("block_ell_spmm")
+    fused_paths = by_path("block_ell_spmm_fused")
     kernels = [{
         "name": "block_ell_spmm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_ell_spmm.cu",
         "replaces": "src/repro/kernels/block_spmm.py:103",
         "also_replaces": "src/repro/kernels/block_spmm.py:132",
-        "launches": train_spmm + serve_launches,
-        "launches_by_path": {"train": train_spmm, "serve": serve_launches},
+        "launches": sum(spmm_paths.values()),
+        "launches_by_path": spmm_paths,
         **gcn_numbers(serve),
         "shape": {k: serve[k] for k in shape_keys if k in serve},
         "train_bwd": dict(gcn_numbers(bwd), shape={
@@ -1139,7 +1472,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_ell_spmm_fused.cu",
         "replaces": "src/repro/kernels/block_spmm.py:254",
-        "launches": trained["launches"]["block_ell_spmm_fused"],
+        "launches": sum(fused_paths.values()),
+        "launches_by_path": fused_paths,
         **gcn_numbers(fused_row),
         "function_flops": fused_row["function_flops"],
         "kernel_flops": fused_row["kernel_flops"],

@@ -8,10 +8,13 @@ Hopper (sm_90a) under `kernels/csrc/`, with a plain PyTorch version
 beside it that CPU tensors take.
 
 Ported so far: single-device Cluster-GCN training (`core/engine.py`,
-`launch/run_experiment.py`), the GCN serving path (`serve/`,
-`launch/serve_gcn.py`), with the host stages they need, and LM serving
+`launch/run_experiment.py`) on the cluster batcher or the GraphSAINT
+samplers (`core/samplers.py`), the paper's baselines
+(`core/baselines.py`: full-batch, exact L-hop SGD, GraphSAGE, VR-GCN),
+the GCN serving path (`serve/`, `launch/serve_gcn.py`, which trains
+first on a cold start), with the host stages they need, and LM serving
 (`models/`, `dist/steps.py`, `launch/serve.py`: prefill through the
-flash-attention kernel, greedy decode over the KV cache). The
-GraphSAINT samplers, data parallelism, the baselines, LM training and
-the other LM block kinds come in later slices.
+flash-attention kernel, greedy decode over the KV cache). Real-dataset
+loading, data parallelism, LM training and the other LM block kinds
+come in later slices.
 """

@@ -1,5 +1,9 @@
 """Model, batching, training engine, experiment specs and the host
 oracle."""
+from repro_torch.core.baselines import (expansion_stats, lhop_closure,
+                                        train_expansion_sgd,
+                                        train_full_batch, train_sage,
+                                        train_vrgcn)
 from repro_torch.core.batching import (ClusterBatch, ClusterBatcher, Sampler,
                                        batch_to_device,
                                        normalized_subgraph_csr,
@@ -12,6 +16,7 @@ from repro_torch.core.engine import (CheckpointHook, Engine, EvalHook,
 from repro_torch.core.experiment import (Experiment, ExperimentSpec,
                                          apply_overrides, build_batcher,
                                          build_experiment, build_gcn_config,
+                                         default_saint_budget,
                                          build_graph, build_hooks,
                                          build_optimizer, build_partition,
                                          list_presets, parse_set_items,
@@ -21,8 +26,10 @@ from repro_torch.core.gcn import (GCN, GCNConfig, GCNLayer, gcn_forward,
                                   gcn_loss, init_gcn, init_params, micro_f1,
                                   params_from_numpy, params_to_numpy,
                                   params_tree)
-from repro_torch.core.kslots import pow2_ceil
+from repro_torch.core.kslots import (KSlotsPlan, fill_stats,
+                                     plan_k_buckets, pow2_ceil)
 from repro_torch.core.prefetch import prefetch_iter
+from repro_torch.core.samplers import SaintEdgeSampler, SaintNodeSampler
 from repro_torch.core.trainer import (evaluate, full_graph_logits,
                                       train_cluster_gcn)
 
@@ -39,5 +46,8 @@ __all__ = [
     "GCNLayer", "gcn_forward", "gcn_loss", "init_gcn", "init_params",
     "micro_f1", "params_from_numpy", "params_to_numpy", "params_tree",
     "pow2_ceil", "prefetch_iter", "evaluate", "full_graph_logits",
-    "train_cluster_gcn",
+    "train_cluster_gcn", "default_saint_budget", "KSlotsPlan",
+    "fill_stats", "plan_k_buckets", "SaintEdgeSampler", "SaintNodeSampler",
+    "expansion_stats", "lhop_closure", "train_expansion_sgd",
+    "train_full_batch", "train_sage", "train_vrgcn",
 ]

@@ -14,8 +14,9 @@ Everything here is host numpy, copied from the reference so payloads
 are bit-identical per (seed, epoch) (tests/test_torch_batching.py). A
 sparse payload's adjacency is a `BlockEllAdj` whose leaves are CPU
 tensors over the builder's numpy buffers; `batch_to_device` moves a
-payload to the device the step runs on. The GraphSAINT samplers of the
-reference (its `core/samplers.py`) are a later slice.
+payload to the device the step runs on. The GraphSAINT samplers
+(`core/samplers.py`) build their payloads through `subgraph_payload`
+too.
 """
 from __future__ import annotations
 
@@ -74,8 +75,8 @@ class Sampler(Protocol):
     Algorithm 1; everything downstream (Engine, SingleDevice/ShardMap
     StepBackends, prefetch, checkpoint/resume fast-forward) only sees
     this protocol. Implementations: `ClusterBatcher` (paper §3.2
-    stochastic multiple partitions), the reference's GraphSAINT-style
-    samplers (a later slice of the port).
+    stochastic multiple partitions), the GraphSAINT-style samplers
+    (`core/samplers.py`).
 
     Contract:
       * `epoch(e, start_step=k)` yields the fixed-shape `ClusterBatch`

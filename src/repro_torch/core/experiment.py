@@ -4,13 +4,13 @@ The spec dataclasses are copied field for field — same names, defaults
 and `doc` metadata — so any spec JSON the reference writes round-trips
 through `ExperimentSpec.from_json` here unchanged, and one spec file
 drives both packages. The builders materialize a spec: the graph
-(`build_graph`), its partition (`build_partition`), the cluster batcher
-(`build_batcher`), the model config (`build_gcn_config`), the optimizer
-(`build_optimizer`), the hook stack (`build_hooks`) and the whole run
-(`build_experiment` → `Experiment` with its Engine). Runs are single
-device: the data-parallel mesh (`execution.data_shards`) and the
-GraphSAINT samplers (`batch.sampler="saint_*"`) are later slices of the
-port and raise when asked for.
+(`build_graph`), its partition (`build_partition`), the sampler
+(`build_batcher`: the cluster batcher or a GraphSAINT sampler), the
+model config (`build_gcn_config`), the optimizer (`build_optimizer`),
+the hook stack (`build_hooks`) and the whole run (`build_experiment` →
+`Experiment` with its Engine). Runs are single device: the
+data-parallel mesh (`execution.data_shards`) is a later slice of the
+port and raises when asked for.
 
 Preset registry: `preset("ppi"|"ppi_sota"|"ppi_tiny"|...)` returns a
 fresh spec from `repro_torch.configs.{ppi,reddit,amazon2m}`.
@@ -30,6 +30,7 @@ from repro_torch.core.engine import (CheckpointHook, Engine, EvalHook,
                                      LoggingHook, PreemptionHook,
                                      SingleDeviceBackend, TrainResult)
 from repro_torch.core.gcn import GCNConfig
+from repro_torch.core.samplers import SaintEdgeSampler, SaintNodeSampler
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.generators import make_dataset
 from repro_torch.graph.partition import partition_graph
@@ -549,27 +550,56 @@ def build_gcn_config(spec: ExperimentSpec, graph: CSRGraph) -> GCNConfig:
         fuse_spmm=m.fuse_spmm)
 
 
+def default_saint_budget(spec: ExperimentSpec, graph: CSRGraph) -> int:
+    """Draws-per-batch default for the SAINT samplers: sized so a batch
+    carries about as many distinct nodes as the cluster sampler's
+    average q-cluster union (q·N/p) — which also makes the derived
+    steps-per-epoch comparable — halved for saint_edge (each edge draw
+    contributes up to two nodes)."""
+    target = max(1, round(spec.batch.clusters_per_batch
+                          * graph.num_nodes / spec.partition.num_parts))
+    if spec.batch.sampler == "saint_edge":
+        target = max(1, -(-target // 2))
+    return target
+
+
 def build_batcher(spec: ExperimentSpec, graph: CSRGraph,
                   parts: Optional[np.ndarray]) -> Sampler:
-    """BatchSpec → a ClusterBatcher over `parts` (batch.sampler=
-    "cluster"). The GraphSAINT samplers are a later slice of the port."""
+    """BatchSpec → the spec's Sampler: a ClusterBatcher over `parts`
+    (batch.sampler="cluster") or a GraphSAINT-style node/edge sampler
+    (no partition needed). All samplers emit the same payload contract,
+    so the Engine/backends downstream don't branch on this choice."""
     b = spec.batch
-    if b.sampler != "cluster":
-        raise NotImplementedError(
-            f"batch.sampler={b.sampler!r}: the GraphSAINT samplers are not "
-            f"ported yet (a later slice of the port); use 'cluster'")
-    if parts is None:
-        raise ValueError("batch.sampler='cluster' needs a partition")
-    return ClusterBatcher(graph, parts,
-                          clusters_per_batch=b.clusters_per_batch,
-                          norm=b.norm, diag_lambda=b.diag_lambda,
-                          node_cap=b.node_cap,
-                          pad_multiple=b.pad_multiple, seed=b.seed,
-                          drop_overflow=b.drop_overflow,
-                          sparse_adj=b.sparse_adj,
-                          block_size=b.block_size, k_slots=b.k_slots,
-                          precompute_ax=spec.model.precompute_ax,
-                          reuse_tile_buffers=b.reuse_tile_buffers)
+    if b.sampler == "cluster":
+        if parts is None:
+            raise ValueError("batch.sampler='cluster' needs a partition")
+        return ClusterBatcher(graph, parts,
+                              clusters_per_batch=b.clusters_per_batch,
+                              norm=b.norm, diag_lambda=b.diag_lambda,
+                              node_cap=b.node_cap,
+                              pad_multiple=b.pad_multiple, seed=b.seed,
+                              drop_overflow=b.drop_overflow,
+                              sparse_adj=b.sparse_adj,
+                              block_size=b.block_size, k_slots=b.k_slots,
+                              precompute_ax=spec.model.precompute_ax,
+                              reuse_tile_buffers=b.reuse_tile_buffers)
+    budget = b.budget if b.budget is not None \
+        else default_saint_budget(spec, graph)
+    common = dict(norm=b.norm, diag_lambda=b.diag_lambda,
+                  node_cap=b.node_cap, pad_multiple=b.pad_multiple,
+                  seed=b.seed, batches_per_epoch=b.batches_per_epoch,
+                  sparse_adj=b.sparse_adj, block_size=b.block_size,
+                  k_slots=b.k_slots,
+                  precompute_ax=spec.model.precompute_ax,
+                  reuse_tile_buffers=b.reuse_tile_buffers)
+    if b.sampler == "saint_node":
+        return SaintNodeSampler(graph, budget,
+                                degree_weighted=b.degree_weighted,
+                                **common)
+    if b.sampler == "saint_edge":
+        return SaintEdgeSampler(graph, budget, **common)
+    raise ValueError(f"unknown sampler {b.sampler!r} "
+                     f"(known: {_SAMPLERS})")
 
 
 def build_optimizer(spec: ExperimentSpec) -> Optimizer:
@@ -607,7 +637,7 @@ class Experiment:
     """Everything `build_experiment` materialized from one spec."""
     spec: ExperimentSpec
     graph: CSRGraph
-    parts: Optional[np.ndarray]
+    parts: Optional[np.ndarray]    # None for the partition-free samplers
     partition_stats: Any
     batcher: Sampler
     cfg: GCNConfig
@@ -631,7 +661,7 @@ def build_experiment(spec: ExperimentSpec, *,
     if spec.execution.data_shards is not None:
         raise NotImplementedError(
             "execution.data_shards: data-parallel training is not ported "
-            "yet (ROADMAP slice A4); leave it None for one device")
+            "yet (ROADMAP slice A5); leave it None for one device")
     from repro_torch.device import resolve_device
     resolve_device(device)            # fail before building anything
     fault_plan = None
@@ -640,7 +670,11 @@ def build_experiment(spec: ExperimentSpec, *,
         fault_plan = FaultPlan.from_dict(spec.run.faults)
     if graph is None:
         graph = build_graph(spec)
-    parts, stats = build_partition(spec, graph)
+    if spec.batch.sampler == "cluster":
+        parts, stats = build_partition(spec, graph)
+    else:
+        # SAINT samplers draw i.i.d. subgraphs — no partition to build
+        parts, stats = None, None
     batcher = build_batcher(spec, graph, parts)
     cfg = build_gcn_config(spec, graph)
     opt = build_optimizer(spec)

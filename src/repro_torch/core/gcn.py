@@ -249,6 +249,17 @@ def gcn_forward(params, adj, x: torch.Tensor, cfg: GCNConfig, *,
     return h.float()
 
 
+def bce_with_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid cross-entropy max(z, 0) - z·y + log1p(e^-|z|),
+    the reference's multilabel loss. At a logit of exactly 0 (common
+    under bf16) it takes the reference's subgradients: jnp.maximum
+    splits a tie (as torch.maximum does) and jnp.abs has derivative +1
+    at 0 (as the select below does; torch.abs has 0 there)."""
+    absl = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * y
+            + torch.log1p(torch.exp(-absl)))
+
+
 def gcn_loss(params, batch_tuple, cfg: GCNConfig, *, train: bool = True,
              generator: Optional[torch.Generator] = None,
              spmm: Callable = spmm_dispatch,
@@ -263,13 +274,7 @@ def gcn_loss(params, batch_tuple, cfg: GCNConfig, *, train: bool = True,
     denom = torch.clamp(loss_mask.sum(), min=1.0)
     if cfg.multilabel:
         y = labels.float()
-        # at a logit of exactly 0 (common under bf16) take the
-        # reference's subgradients: jnp.maximum splits a tie (as
-        # torch.maximum does) and jnp.abs has derivative +1 at 0 (as the
-        # select below does; torch.abs has 0 there)
-        absl = torch.where(logits >= 0, logits, -logits)
-        ll = (torch.maximum(logits, logits.new_zeros(())) - logits * y
-              + torch.log1p(torch.exp(-absl)))
+        ll = bce_with_logits(logits, y)
         loss = (ll.sum(-1) * loss_mask).sum() / denom
         pred = (logits > 0).float()
         m = loss_mask[:, None]

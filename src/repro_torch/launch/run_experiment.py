@@ -104,11 +104,16 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     (out / "spec.json").write_text(spec.to_json(indent=2))
     steps = exp.batcher.steps_per_epoch()
-    sampler_desc = (f"{spec.partition.num_parts} parts (within "
-                    f"{exp.partition_stats.within_fraction:.1%})")
-    if exp.partition_stats.cached is not None:
-        sampler_desc += (", partition cache "
-                         + ("hit" if exp.partition_stats.cached else "miss"))
+    if exp.partition_stats is not None:
+        sampler_desc = (f"{spec.partition.num_parts} parts (within "
+                        f"{exp.partition_stats.within_fraction:.1%})")
+        if exp.partition_stats.cached is not None:
+            sampler_desc += (", partition cache "
+                             + ("hit" if exp.partition_stats.cached
+                                else "miss"))
+    else:    # partition-free SAINT sampler
+        sampler_desc = (f"{spec.batch.sampler} sampler "
+                        f"(budget {exp.batcher.budget})")
     print(f"[experiment] {spec.name}: {exp.graph.num_nodes} nodes, "
           f"{exp.graph.num_edges // 2} edges, {sampler_desc}, "
           f"{steps} steps/epoch x {spec.run.epochs} epochs on {device}"

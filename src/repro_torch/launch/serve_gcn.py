@@ -16,12 +16,14 @@ partition fingerprint), then answers `--queries` random lookups in
 mixed-size batches across the padding-bucket ladder and reports
 per-bucket p50/p99 latency and overall QPS.
 
-Training is not ported yet, so the driver needs a checkpoint: with none
-it exits non-zero and says where to get one (`python -m
-repro.launch.run_experiment --set run.checkpoint_dir=...` writes one in
-the shared layout, as does `repro_torch.runtime.CheckpointManager`).
+With no checkpoint on disk the CLI TRAINS the preset first on
+`--device` (the spec's run section says how; `core.experiment.
+build_experiment(...).fit()` writes the checkpoint into the serving
+directory), so the one-liner works from a blank tree.
 `--verify-parity` cross-checks every served logit against the host
-oracle (core.trainer.full_graph_logits) at 1e-5. `--bench-out` writes
+oracle (core.trainer.full_graph_logits): at 1e-5 on the CPU (the
+reference's contract) and at 1e-4·max(1, max|ref|) on a GPU, whose
+kernels sum 2048-wide layers in other orders. `--bench-out` writes
 the latency rows as BENCH json (metric: p50_s, lower is better).
 """
 from __future__ import annotations
@@ -37,11 +39,28 @@ import torch
 
 from repro_torch.launch.run_experiment import DEFAULT_RESULTS, load_spec
 
-PARITY_TOL = 1e-5
+PARITY_TOL = 1e-5          # max|Δ| on the CPU
+CARD_PARITY_TOL = 1e-4     # max|Δ| / max(1, max|ref|) on a GPU
 
 
 def _percentile(xs, q) -> float:
     return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def _train_if_needed(spec, ckpt_dir: str, device) -> None:
+    """Cold start: no usable checkpoint under ckpt_dir → run the spec's
+    training loop on `device` to produce one (the serve CLI stays a
+    one-liner)."""
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    if CheckpointManager(ckpt_dir).latest_valid_step() is not None:
+        return
+    print(f"[serve_gcn] no checkpoint in {ckpt_dir} — training "
+          f"{spec.name} for {spec.run.epochs} epoch(s) first",
+          file=sys.stderr)
+    from repro_torch.core.experiment import build_experiment
+    train_spec = spec.copy()
+    train_spec.run.checkpoint_dir = ckpt_dir
+    build_experiment(train_spec, device=device).fit()
 
 
 def main(argv=None) -> int:
@@ -59,7 +78,8 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-dir",
                     help="checkpoint directory (default: the spec's "
                          "run.checkpoint_dir, falling back to "
-                         "<results-dir>/<name>/checkpoints)")
+                         "<results-dir>/<name>/checkpoints); trains "
+                         "first when empty")
     ap.add_argument("--results-dir", default=str(DEFAULT_RESULTS))
     ap.add_argument("--step", type=int, default=None,
                     help="serve this checkpoint step instead of the "
@@ -70,7 +90,8 @@ def main(argv=None) -> int:
                     help="where the model runs: cuda (default) or cpu")
     ap.add_argument("--verify-parity", action="store_true",
                     help="check every served logit against the host "
-                         "full-graph oracle at 1e-5")
+                         "full-graph oracle (1e-5 on the CPU, "
+                         "1e-4·max(1, max|ref|) on a GPU)")
     ap.add_argument("--bench-out", metavar="PATH",
                     help="also write the latency rows as BENCH json")
     args = ap.parse_args(argv)
@@ -85,17 +106,8 @@ def main(argv=None) -> int:
                 or str(pathlib.Path(args.results_dir) / spec.name
                        / "checkpoints"))
 
-    from repro_torch.runtime.checkpoint import CheckpointManager
-    if args.step is None and \
-            CheckpointManager(ckpt_dir).latest_valid_step() is None:
-        print(f"[serve_gcn] no valid checkpoint in {ckpt_dir}: training "
-              f"is not ported to repro_torch yet, so serving needs a "
-              f"checkpoint — write one with `python -m "
-              f"repro.launch.run_experiment --preset {spec.name} --set "
-              f"run.checkpoint_dir={ckpt_dir}` or with "
-              f"repro_torch.runtime.CheckpointManager.save(step, "
-              f"{{'params': params_to_numpy(gcn)}})", file=sys.stderr)
-        return 2
+    if args.step is None:
+        _train_if_needed(spec, ckpt_dir, device)
 
     from repro_torch.serve import ServeEngine
     engine = ServeEngine.from_checkpoint(spec, ckpt_dir, step=args.step,
@@ -157,10 +169,13 @@ def main(argv=None) -> int:
                                 diag_lambda=engine.diag_lambda)
         worst = max(float(np.abs(r.logits - ref[r.node_ids]).max())
                     for r in results)
-        status = "OK" if worst <= PARITY_TOL else "FAIL"
+        bound = (PARITY_TOL if device.type == "cpu" else
+                 CARD_PARITY_TOL * max(1.0, float(np.abs(ref).max())))
+        status = "OK" if worst <= bound else "FAIL"
         print(f"[serve_gcn] parity vs host full-graph oracle: "
-              f"max |Δ| = {worst:.2e} [{status}]", file=sys.stderr)
-        if worst > PARITY_TOL:
+              f"max |Δ| = {worst:.2e} (bound {bound:.2e}) [{status}]",
+              file=sys.stderr)
+        if worst > bound:
             return 1
 
     if args.bench_out:

@@ -250,6 +250,72 @@ def test_differentiable_products_on_gpu_match_cpu(cuda, fused, dtype):
         assert err <= tol * max(1.0, float(want.abs().max()))
 
 
+@pytest.mark.parametrize("sampler", ["saint_node", "saint_edge"])
+def test_saint_training_step_on_gpu_matches_cpu(cuda, sampler):
+    """One `gcn_loss` + backward on a GraphSAINT batch (fractional loss
+    weights, block-ELL, fused layers) on CUDA (the kernels: one fused
+    and one SpMM launch per layer) against the CPU (plain versions):
+    loss within 1e-4 relative, grads within 1e-4·max(1, max|g_cpu|)."""
+    import dataclasses
+    from repro_torch.core.batching import batch_to_device
+    from repro_torch.core.experiment import build_experiment, preset
+    from repro_torch.core.gcn import gcn_loss, init_params
+    from repro_torch.kernels import block_spmm
+    from repro_torch.nn.tree import tree_leaves, tree_map
+    spec = preset("ppi_tiny_saint")
+    spec.batch.sampler = sampler
+    spec.batch.sparse_adj = True
+    spec.model.fuse_spmm = True
+    spec.partition.cache = False
+    exp = build_experiment(spec, device=cuda)
+    cfg = dataclasses.replace(exp.cfg, dropout=0.0)
+    host = next(iter(exp.batcher.epoch(0))).astuple()
+    lm = host[4]
+    assert not np.all(np.isin(lm, (0.0, 1.0)))   # estimator weights
+    params = init_params(cfg, generator=torch.Generator().manual_seed(3),
+                         device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        before = (block_spmm.LAUNCHES, block_spmm.LAUNCHES_FUSED)
+        loss, _ = gcn_loss(p, batch_to_device(host, dev), cfg, train=True)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        launched = (block_spmm.LAUNCHES - before[0],
+                    block_spmm.LAUNCHES_FUSED - before[1])
+        out[str(dev)] = (float(loss.detach()),
+                         [g.float().cpu() for g in grads], launched)
+    n = cfg.num_layers
+    assert out["cpu"][2] == (0, 0) and out["cuda"][2] == (n, n)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= \
+        1e-4 * abs(out["cpu"][0])
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_full_batch_baseline_on_gpu_matches_cpu(cuda):
+    """Two full-batch epochs (`index_add` with atomics on CUDA) from the
+    same init: losses within 1e-4 relative, params within
+    1e-4·max(1, max|p|)."""
+    from repro_torch.core.baselines import train_full_batch
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.graph.generators import make_dataset
+    from repro_torch.nn import optim
+    from repro_torch.nn.tree import tree_leaves
+    g = make_dataset("ppi", scale=0.05, seed=0)
+    cfg = GCNConfig(in_dim=50, hidden_dim=64, out_dim=121, num_layers=3,
+                    dropout=0.0, multilabel=True)
+    out = {str(dev): train_full_batch(g, cfg, optim.adamw(1e-2), 2,
+                                      device=dev)
+           for dev in ("cpu", cuda)}
+    for a, b in zip(out["cuda"]["history"], out["cpu"]["history"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    for a, b in zip(tree_leaves(out["cuda"]["params"]),
+                    tree_leaves(out["cpu"]["params"])):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * max(1.0, float(b.abs().max()))
+
+
 # ----------------------------------------------------------------------
 # flash attention and the LM serving path
 # ----------------------------------------------------------------------

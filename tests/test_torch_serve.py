@@ -359,11 +359,24 @@ def test_serve_gcn_cli_on_cpu_with_parity(tmp_path):
     assert any(r["name"].endswith("/precompute") for r in doc["rows"])
 
 
-def test_serve_gcn_without_checkpoint_exits_nonzero(tmp_path, capsys):
+def test_serve_gcn_trains_on_a_cold_start(tmp_path, capsys):
+    """An empty checkpoint directory: the CLI trains the preset on the
+    CPU (as the reference's `_train_if_needed` does), writes step_*,
+    then serves the new checkpoint and passes --verify-parity."""
+    ck = tmp_path / "empty"
     rc = serve_gcn.main(["--preset", "ppi_tiny", "--device", "cpu",
-                         "--checkpoint-dir", str(tmp_path / "empty")])
-    assert rc != 0
+                         "--checkpoint-dir", str(ck),
+                         "--set", "run.epochs=2",
+                         "--set", f"serve.cache_dir={tmp_path / 'cache'}",
+                         "--queries", "64", "--verify-parity"])
+    assert rc == 0
     err = capsys.readouterr().err
-    assert "training is not ported" in err
-    assert "repro.launch.run_experiment" in err
-    assert not any((tmp_path / "empty").glob("step_*"))
+    assert "training ppi_tiny for 2 epoch(s) first" in err
+    assert "parity vs host full-graph oracle" in err and "[OK]" in err
+    steps = sorted(ck.glob("step_*"))
+    assert steps
+    spec = exp.preset("ppi_tiny")
+    graph = exp.build_graph(spec)
+    parts, _ = exp.build_partition(spec, graph)
+    per_epoch = exp.build_batcher(spec, graph, parts).steps_per_epoch()
+    assert CheckpointManager(str(ck)).latest_valid_step() == 2 * per_epoch
