@@ -107,6 +107,40 @@ this script. Phases, each of which must pass (no failure is caught):
    saint_node run of phase 10. Then one full-batch step GPU vs CPU
    from the same params (dropout 0; `index_add` sums with atomics on
    the card): loss within 1e-4 relative.
+12. A real-format dataset at the published PPI size: the port's writer
+   (`repro_torch.graph.archives`) puts a GraphSAGE-format ppi.zip from
+   seed 0 into a temporary `file://` mirror — 56,944 nodes in 24 graphs,
+   818,716 links, 50 features, 121 labels, splits 44,906 / 6,514 /
+   5,524 — and `load_dataset("ppi_real")` runs into a fresh cache
+   (fetch, checksum, extract, parse, processed write: timed), then
+   reloads it memory-mapped (timed). Then ppi_sota's recipe (5 x 2048,
+   block-ELL, fused) on that graph (`data.name=ppi_real`) trains one
+   epoch through `run_experiment.main` on the card: exactly 5 fused and 5
+   block-ELL launches per step, finite loss, peak device memory; the
+   step split (medians of 20) and one step card vs CPU under phase 4's
+   bounds. The links, features and labels are random: no F1 is claimed.
+13. Data-parallel training, in child processes of this script:
+   (a) a world of 1 over NCCL (env:// rendezvous at 127.0.0.1): for
+   compression None, "bf16", 8 and 4, 20 steps of ppi_sota (5 x 2048,
+   block-ELL, fused) through `build_experiment(...).fit()` with
+   execution.data_shards=1 (exactly 5 + 5 launches per step), the step
+   median and the host build of the rank's slice (synchronised, 20
+   steps), the all-reduce's share of the step (one
+   all-reduce of the step's flat gradient buffer, CUDA events), and the
+   first step against `SingleDeviceBackend` on the same batch and params
+   (dropout 0): the synced gradient, read from AdamW's first moment,
+   within STEP_TOL·max(1, max|m|) (None), 2^-8 of each element plus that
+   (bf16: one bf16 rounding), or max|m|/(2·qmax) plus that (int8/int4:
+   half a quantization step of the leaf's largest group).
+   (b) two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+   card; gloo stages CUDA tensors through the host): one step of two
+   different batches; the synced gradient against the mean of the two
+   ranks' own gradients and the updated params against one AdamW step
+   of that mean, under STEP_TOL·max(1, max|ref|); 5 + 5 launches per
+   rank; the host build of a rank's slice (every rank builds both
+   batches of the group); gloo's all-reduce time for the gradient
+   buffer of CUDA tensors.
+   Nothing here is NCCL across cards: the machine has one.
 
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
@@ -151,6 +185,12 @@ TRAIN_SETS = ["batch.sparse_adj=true", "model.fuse_spmm=true"]
 SAINT_SETS = TRAIN_SETS + ["batch.node_cap=384"]
 SAINT_RUNS = (("saint_node", 2), ("saint_edge", 1))
 BASELINE_BATCH = 512
+# phase 12: ppi_sota's recipe on the real-format PPI graph
+REAL_SETS = TRAIN_SETS + ["data.name=ppi_real"]
+# phase 13: the data-parallel runs
+DP_COMPRESSIONS = (None, "bf16", 8, 4)
+DP_STEPS = 20
+DP_TIMEOUT_S = 300
 # llama3.2-1b prefill: B 4, Hq 32 over Hkv 8, T 2048, head dim 64, bf16
 FLASH_MAIN = dict(B=4, Hq=32, Hkv=8, Tq=2048, Tk=2048, D=64)
 LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
@@ -1355,8 +1395,356 @@ def phase_baselines(results: dict) -> None:
         raise AssertionError(f"full batch: {results['full_batch_parity']}")
 
 
+def phase_real(results: dict, work: pathlib.Path) -> dict:
+    """GraphSAGE-format PPI at its published size through the real-dataset
+    path, then one epoch of ppi_sota's recipe on it through the CLI."""
+    import numpy as np
+    from repro_torch.graph import archives
+    from repro_torch.graph.datasets import load_dataset
+    from repro_torch.kernels import block_spmm
+    from repro_torch.launch import run_experiment
+
+    mirror = work / "mirror"
+    t0 = time.perf_counter()
+    counts = archives.write_graphsage_ppi(mirror / "ppi.zip", seed=0)
+    write_s = time.perf_counter() - t0
+    os.environ["REPRO_DATASETS_MIRROR"] = mirror.as_uri()
+    t0 = time.perf_counter()
+    g = load_dataset("ppi_real")
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = load_dataset("ppi_real")
+    reload_s = time.perf_counter() - t0
+    splits = tuple(int(m.sum()) for m in (g.train_mask, g.val_mask,
+                                          g.test_mask))
+    row = dict(archive=counts, archive_mb=(mirror / "ppi.zip").stat()
+               .st_size / 1e6, write_s=write_s, first_load_s=first_s,
+               reload_s=reload_s, nodes=g.num_nodes, edge_slots=g.num_edges,
+               splits=splits, mmap=isinstance(g.features, np.memmap))
+    print(f"[real] ppi.zip ({row['archive_mb']:.1f} MB, {counts['nodes']} "
+          f"nodes, {counts['links']} links, {counts['graphs']} graphs) "
+          f"written in {write_s:.2f} s; load_dataset: first call (fetch, "
+          f"checksum, extract, parse, processed write) {first_s:.2f} s, "
+          f"cached mmap reload {reload_s * 1e3:.1f} ms; {g.num_edges} edge "
+          f"slots, splits {splits}, features memory-mapped {row['mmap']}")
+    if (g.num_nodes, g.features.shape[1], g.labels.shape[1]) != (
+            archives.PPI_NODES, archives.PPI_FEATURES, archives.PPI_LABELS) \
+            or splits != (counts["train"], counts["val"], counts["test"]) \
+            or not row["mmap"]:
+        raise AssertionError(f"ppi_real loaded wrong: {row}")
+
+    argv = ["--preset", "ppi_sota", "--results-dir", str(work / "real")]
+    for s in REAL_SETS + ["run.epochs=1", "run.eval_every=0"]:
+        argv += ["--set", s]
+    print(f"[real] run_experiment {' '.join(argv)}")
+    mem0 = _reset_peak_memory()
+    t0 = time.perf_counter()
+    # --- the main path: every launch count starts at 0 here -------------
+    block_spmm.LAUNCHES = 0
+    block_spmm.LAUNCHES_FUSED = 0
+    rc = run_experiment.main(argv)
+    launches = {"block_ell_spmm": block_spmm.LAUNCHES,
+                "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+    # ---------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    memory = _peak_memory(mem0)
+    metrics = json.loads((work / "real" / "ppi_sota" / "metrics.json")
+                         .read_text())
+    steps = metrics["global_step"]
+    losses = [h["loss"] for h in metrics["history"]]
+    row.update(rc=rc, steps=steps, wall_s=wall, launches=launches,
+               losses=losses, epoch_s=_epoch_seconds(metrics["history"]),
+               **memory)
+    results["real"] = row
+    print(f"[real] {steps} steps in {wall:.2f} s (incl. build, partition "
+          f"and the final host eval); epoch {row['epoch_s'][0]:.3f} s; loss "
+          f"{losses}; launches {launches} (expected 5 x {steps} each); peak "
+          f"device memory {memory['peak_gib']:.3f} GiB")
+    if rc != 0 or steps == 0 or launches != {
+            "block_ell_spmm": 5 * steps, "block_ell_spmm_fused": 5 * steps} \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ppi_real training: {row}")
+    phase_step_profile(results, REAL_SETS, key="real_step", tag="real step")
+    phase_step_parity(results, REAL_SETS, key="real_step_parity",
+                      tag="real parity")
+    return launches
+
+
+def _dp_spawn(mode: str, world: int, work: pathlib.Path) -> list:
+    """`python chip_smoke.py --dp-worker <mode> <out>` on `world` ranks
+    (torchrun's environment, rendezvous at 127.0.0.1), each killed if it
+    outlives DP_TIMEOUT_S; returns each rank's result."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", mode,
+             str(work / f"dp_{mode}_{r}.json")], env=env))
+    try:
+        rcs = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"data-parallel {mode} ranks exited {rcs}")
+    return [json.loads((work / f"dp_{mode}_{r}.json").read_text())
+            for r in range(world)]
+
+
+def _dp_spec(sets):
+    from repro_torch.core.experiment import apply_overrides
+    from repro_torch.launch.run_experiment import load_spec
+    spec = load_spec(_spec_args(TRAIN_SETS))
+    return apply_overrides(spec, sets)
+
+
+def _allreduce_ms(numel: int, device, reps: int = 20) -> float:
+    """Median of `reps` all-reduces of one fp32 buffer of `numel`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    buf = torch.ones(numel, dtype=torch.float32, device=device)
+    times = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[2:])) * 1e3
+
+
+def _first_moment_err(got, want, comp) -> float:
+    """Worst |Δm| / bound over the leaves of two AdamW first moments
+    (phase 13a's bounds, module docstring)."""
+    import torch
+    worst = 0.0
+    for g, w in zip(got, want):
+        top = float(w.abs().max())
+        bound = STEP_TOL * max(1.0, top) + torch.zeros_like(w)
+        if comp == "bf16":
+            bound = bound + 2.0 ** -8 * w.abs()
+        elif comp in (8, 4):
+            bound = bound + top / (2 * (2 ** (comp - 1) - 1))
+        worst = max(worst, float(((g - w).abs() / bound).max()))
+    return worst
+
+
+def _dp_nccl() -> dict:
+    """Phase 13a in a world of 1 over NCCL (one process)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import batch_to_device
+    from repro_torch.core.engine import (DataParallelBackend,
+                                         SingleDeviceBackend, StopAtStepHook)
+    from repro_torch.core.experiment import build_experiment
+    from repro_torch.core.gcn import init_params
+    from repro_torch.kernels import block_spmm
+    from repro_torch.nn.tree import tree_leaves
+
+    out = {}
+    for comp in DP_COMPRESSIONS:
+        spec = _dp_spec({"execution.data_shards": 1,
+                         "execution.compression": comp,
+                         "run.epochs": 1, "run.eval_every": 0})
+        exp = build_experiment(spec, device="cuda",
+                               extra_hooks=[StopAtStepHook(DP_STEPS)])
+        backend, dev = exp.engine.backend, exp.engine.device
+        # --- the main path: every launch count starts at 0 here ---------
+        block_spmm.LAUNCHES = 0
+        block_spmm.LAUNCHES_FUSED = 0
+        res = exp.fit()
+        torch.cuda.synchronize()
+        launches = {"block_ell_spmm": block_spmm.LAUNCHES,
+                    "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+        # -----------------------------------------------------------------
+        steps = exp.engine.global_step
+        # the step split, each step synchronised
+        state = exp.engine.state
+        it = backend.stream(b.astuple() for b in exp.batcher.epoch(0))
+        times, builds = [], []
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            host = next(it)
+            builds.append(time.perf_counter() - t0)
+            payload = batch_to_device(host, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss, _ = backend.step(state, payload)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        numel = sum(p.numel() for p in tree_leaves(backend.params(state)))
+        allreduce = _allreduce_ms(numel + 5, dev)
+        # the first step against the single-device step, dropout 0
+        cfg0 = dataclasses.replace(exp.cfg, dropout=0.0)
+        dp0 = DataParallelBackend(cfg0, exp.opt, None, device=dev,
+                                  compression=comp)
+        single = SingleDeviceBackend(cfg0, exp.opt, device=dev)
+        params = init_params(cfg0, generator=torch.Generator().manual_seed(3),
+                             device=dev)
+        host = next(iter(exp.batcher.epoch(0))).astuple()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        s_state, s_loss, _ = single.step(single.init(params, gen),
+                                         batch_to_device(host, dev))
+        d_state, d_loss, _ = dp0.step(dp0.init(params, gen),
+                                      batch_to_device([host], dev))
+        worst = _first_moment_err(tree_leaves(d_state["dist"]["opt"].mu),
+                                  tree_leaves(s_state["opt"].mu), comp)
+        out[str(comp)] = dict(
+            steps=steps, launches=launches,
+            losses=[h["loss"] for h in res.history] or None,
+            step_ms=float(np.median(times)) * 1e3,
+            build_ms=float(np.median(builds)) * 1e3,
+            allreduce_ms=allreduce,
+            allreduce_share=allreduce / (float(np.median(times)) * 1e3),
+            grad_numel=numel, loss_single=float(s_loss),
+            loss_dp=float(d_loss), worst_moment_err_over_bound=worst,
+            finite=bool(math.isfinite(float(loss))))
+    return out
+
+
+def _dp_gloo() -> dict:
+    """Phase 13b on one of two ranks sharing cuda:0 over gloo."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.batching import batch_to_device
+    from repro_torch.core.experiment import build_experiment
+    from repro_torch.core.gcn import gcn_loss, init_params
+    from repro_torch.kernels import block_spmm
+    from repro_torch.nn.optim import apply_updates
+    from repro_torch.nn.tree import tree_leaves, tree_map
+
+    rank = dist.get_rank()
+    spec = _dp_spec({"execution.data_shards": 2, "model.dropout": 0.0})
+    exp = build_experiment(spec, device="cuda:0")
+    backend, dev = exp.engine.backend, exp.engine.device
+    params = init_params(exp.cfg, generator=torch.Generator().manual_seed(3),
+                         device=dev)
+    # host cost of this rank's slice: every rank builds the whole group
+    it = backend.stream(b.astuple() for b in exp.batcher.epoch(0))
+    builds = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        host = next(it)
+        builds.append(time.perf_counter() - t0)
+        if len(builds) == 1:
+            mine = batch_to_device(host, dev)
+    # this rank's own gradient, and the other rank's, for the reference
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = gcn_loss(live, mine[0], exp.cfg, train=True)
+    own = torch.cat([g.reshape(-1) for g in
+                     torch.autograd.grad(loss, tree_leaves(live))])
+    both = [torch.empty_like(own) for _ in range(2)]
+    dist.all_gather(both, own)
+    mean = (both[0] + both[1]) / 2
+    # --- the main path: every launch count starts at 0 here -------------
+    block_spmm.LAUNCHES = 0
+    block_spmm.LAUNCHES_FUSED = 0
+    state, dp_loss, _ = backend.step(backend.init(
+        params, torch.Generator(device=dev).manual_seed(1)), mine)
+    torch.cuda.synchronize()
+    launches = {"block_ell_spmm": block_spmm.LAUNCHES,
+                "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+    # ---------------------------------------------------------------------
+    b1 = 0.9
+    synced = torch.cat([m.reshape(-1) for m in
+                        tree_leaves(state["dist"]["opt"].mu)]) / (1 - b1)
+    grad_err = float((synced - mean).abs().max()) / (
+        STEP_TOL * max(1.0, float(mean.abs().max())))
+    offsets, grads = 0, []
+    for p in tree_leaves(params):
+        grads.append(mean[offsets:offsets + p.numel()].view(p.shape))
+        offsets += p.numel()
+    it = iter(grads)
+    tree = tree_map(lambda _: next(it), params)
+    updates, _ = exp.opt.update(tree, exp.opt.init(params), params)
+    want = apply_updates(params, updates)
+    param_err = max(
+        float((a - b).abs().max()) / (STEP_TOL * max(1.0, float(b.abs().max())))
+        for a, b in zip(tree_leaves(state["dist"]["params"]),
+                        tree_leaves(want)))
+    return dict(rank=rank, launches=launches,
+                build_ms=float(np.median(builds)) * 1e3,
+                loss_local=float(loss.detach()),
+                loss_dp=float(dp_loss), grad_err_over_bound=grad_err,
+                param_err_over_bound=param_err, grad_numel=own.numel(),
+                gloo_allreduce_ms=_allreduce_ms(own.numel(), dev, reps=5),
+                gloo_backend=dist.get_backend(), device=str(dev))
+
+
+def dp_worker(mode: str, out: str) -> int:
+    """One rank of phase 13 (the environment is torchrun's)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if mode == "nccl" else "gloo")
+    try:
+        res = _dp_nccl() if mode == "nccl" else _dp_gloo()
+    finally:
+        dist.destroy_process_group()
+    pathlib.Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def phase_dp(results: dict, work: pathlib.Path) -> dict:
+    """Phase 13: data parallel over NCCL (a world of 1) and over gloo (two
+    ranks on the one card)."""
+    nccl = _dp_spawn("nccl", 1, work)[0]
+    launches = {}
+    for comp in DP_COMPRESSIONS:
+        r = nccl[str(comp)]
+        per = {k: v / max(1, r["steps"]) for k, v in r["launches"].items()}
+        print(f"[dp] NCCL world 1, compression {comp}: {r['steps']} steps "
+              f"through fit(), launches {r['launches']} ({per} per rank per "
+              f"step); host build {r['build_ms']:.3f} ms, step median "
+              f"{r['step_ms']:.3f} ms, all-reduce of "
+              f"{r['grad_numel']} fp32 {r['allreduce_ms']:.3f} ms (share "
+              f"{r['allreduce_share']:.3f}); first step vs SingleDevice"
+              f"Backend: loss {r['loss_dp']:.6f} vs {r['loss_single']:.6f}, "
+              f"worst synced-gradient err / bound "
+              f"{r['worst_moment_err_over_bound']:.3f}")
+        if r["steps"] != DP_STEPS or r["launches"] != {
+                "block_ell_spmm": 5 * DP_STEPS,
+                "block_ell_spmm_fused": 5 * DP_STEPS} \
+                or not r["worst_moment_err_over_bound"] <= 1.0 \
+                or r["loss_dp"] != r["loss_single"] or not r["finite"]:
+            raise AssertionError(f"data parallel over NCCL, {comp}: {r}")
+        launches[f"dp_nccl_{comp}"] = r["launches"]
+    gloo = _dp_spawn("gloo", 2, work)
+    for r in gloo:
+        print(f"[dp] gloo rank {r['rank']} on {r['device']}: host build of "
+              f"its slice (both batches of the group) {r['build_ms']:.3f} "
+              f"ms; launches {r['launches']}; loss {r['loss_dp']:.6f} (own batch "
+              f"{r['loss_local']:.6f}); synced gradient vs the mean of the "
+              f"two ranks' gradients: err / bound "
+              f"{r['grad_err_over_bound']:.3e}; params vs one AdamW step "
+              f"of that mean: {r['param_err_over_bound']:.3e}; gloo "
+              f"all-reduce of {r['grad_numel']} fp32 on the card "
+              f"{r['gloo_allreduce_ms']:.3f} ms")
+        if r["launches"] != {"block_ell_spmm": 5, "block_ell_spmm_fused": 5} \
+                or not r["grad_err_over_bound"] <= 1.0 \
+                or not r["param_err_over_bound"] <= 1.0:
+            raise AssertionError(f"data parallel over gloo: {r}")
+        launches[f"dp_gloo_rank{r['rank']}"] = r["launches"]
+    if gloo[0]["loss_dp"] != gloo[1]["loss_dp"]:
+        raise AssertionError("the ranks disagree on the global loss")
+    results["dp"] = dict(nccl=nccl, gloo=gloo)
+    return launches
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":
+        return dp_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs "
               "only on a GPU", file=sys.stderr)
@@ -1424,11 +1812,14 @@ def main() -> int:
         cold_launches = phase_cold_start(results, work)
         saint_launches = phase_saint(results, work)
         phase_baselines(results)
+        real_launches = phase_real(results, work)
+        dp_launches = phase_dp(results, work)
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
         else:
             os.environ["REPRO_DATASETS_CACHE"] = old_cache
+        os.environ.pop("REPRO_DATASETS_MIRROR", None)
         shutil.rmtree(work, ignore_errors=True)
 
     def numbers(row):
@@ -1448,7 +1839,9 @@ def main() -> int:
         # the GCN paths that launch the kernel `name`, each counted from 0
         paths = {"train": trained["launches"][name],
                  "cold_start": cold_launches[name],
-                 **{s: n[name] for s, n in saint_launches.items()}}
+                 **{s: n[name] for s, n in saint_launches.items()},
+                 "real_ppi": real_launches[name],
+                 **{s: n[name] for s, n in dp_launches.items()}}
         if name == "block_ell_spmm":
             paths["serve"] = serve_launches
         return paths

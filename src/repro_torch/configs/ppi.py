@@ -95,8 +95,8 @@ def real_spec() -> ExperimentSpec:
     """Table 4 PPI recipe on the REAL GraphSAGE PPI graph (56,944
     nodes, 50 features, 121 labels) — the leaderboard run that compares
     against the paper's 99.36 micro-F1. First use downloads and caches
-    the dataset (repro.graph.datasets; not ported yet); the partition is memoized in
-    the partition cache keyed on the dataset fingerprint."""
+    the dataset (repro_torch.graph.datasets); the partition is memoized
+    in the partition cache keyed on the dataset fingerprint."""
     s = spec()
     s.name = "ppi_real"
     s.data = DataSpec(name="ppi_real")

@@ -43,7 +43,7 @@ def real_spec() -> ExperimentSpec:
     """Table 4 Reddit recipe on the REAL Reddit graph (232,965 nodes,
     602 features, 41 classes; DGL npz distribution) — the leaderboard
     run against the paper's 96.60 micro-F1. Downloaded + cached on
-    first use (repro.graph.datasets; not ported yet)."""
+    first use (repro_torch.graph.datasets)."""
     s = spec()
     s.name = "reddit_real"
     s.data = DataSpec(name="reddit_real")

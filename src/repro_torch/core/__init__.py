@@ -8,17 +8,19 @@ from repro_torch.core.batching import (ClusterBatch, ClusterBatcher, Sampler,
                                        batch_to_device,
                                        normalized_subgraph_csr,
                                        subgraph_payload)
-from repro_torch.core.engine import (CheckpointHook, Engine, EvalHook,
-                                     LoggingHook, PreemptionHook,
-                                     SingleDeviceBackend, StepBackend,
-                                     StopAtStepHook, TrainResult,
-                                     make_train_step, resolve_eval_mask)
+from repro_torch.core.engine import (CheckpointHook, DataParallelBackend,
+                                     Engine, EvalHook, LoggingHook,
+                                     PreemptionHook, SingleDeviceBackend,
+                                     StepBackend, StopAtStepHook,
+                                     TrainResult, make_train_step,
+                                     resolve_eval_mask)
 from repro_torch.core.experiment import (Experiment, ExperimentSpec,
                                          apply_overrides, build_batcher,
                                          build_experiment, build_gcn_config,
                                          default_saint_budget,
                                          build_graph, build_hooks,
                                          build_optimizer, build_partition,
+                                         build_process_group,
                                          list_presets, parse_set_items,
                                          preset, register_preset,
                                          run_experiment, validate)
@@ -37,11 +39,12 @@ __all__ = [
     "ClusterBatch", "ClusterBatcher", "Sampler", "batch_to_device",
     "normalized_subgraph_csr", "subgraph_payload", "CheckpointHook",
     "Engine", "EvalHook", "LoggingHook", "PreemptionHook",
-    "SingleDeviceBackend", "StepBackend", "StopAtStepHook", "TrainResult",
+    "SingleDeviceBackend", "DataParallelBackend", "StepBackend",
+    "StopAtStepHook", "TrainResult",
     "make_train_step", "resolve_eval_mask", "Experiment", "ExperimentSpec",
     "apply_overrides", "build_batcher", "build_experiment",
     "build_gcn_config", "build_graph", "build_hooks", "build_optimizer",
-    "build_partition", "list_presets", "parse_set_items", "preset",
+    "build_partition", "build_process_group", "list_presets", "parse_set_items", "preset",
     "register_preset", "run_experiment", "validate", "GCN", "GCNConfig",
     "GCNLayer", "gcn_forward", "gcn_loss", "init_gcn", "init_params",
     "micro_f1", "params_from_numpy", "params_to_numpy", "params_tree",

@@ -474,10 +474,14 @@ class ClusterBatcher:
 
 def batch_to_device(batch_tuple, device, non_blocking: bool = False):
     """A `ClusterBatch.astuple()` payload (numpy leaves; the adjacency
-    dense numpy or a `BlockEllAdj`) as tensors on `device`. With
+    dense numpy or a `BlockEllAdj`) as tensors on `device`; a list of
+    payloads (a data-parallel rank's slice) maps to a list. With
     non_blocking on a CUDA device the host arrays are first copied into
     pinned memory, so a tile buffer the builder recycles later is never
     read by a copy still in flight."""
+    if isinstance(batch_tuple, list):
+        return [batch_to_device(b, device, non_blocking)
+                for b in batch_tuple]
     dev = torch.device(device)
 
     def move(a):

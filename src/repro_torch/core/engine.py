@@ -3,8 +3,10 @@ port of `repro.core.engine`.
 
 * `StepBackend` — the protocol one training step implements.
   `SingleDeviceBackend` runs the per-batch step on one device (a CUDA
-  GPU, or the CPU when asked). The reference's data-parallel
-  `ShardMapBackend` is a later slice of the port.
+  GPU, or the CPU when asked). `DataParallelBackend` — the counterpart
+  of the reference's `ShardMapBackend` — runs
+  `dist.steps.make_gcn_train_step` on every rank of a torch.distributed
+  process group, fed by the `_dp_groups` grouping.
 * Hooks — objects with any of `on_fit_start/on_step/on_epoch/on_eval/
   on_fit_end`, fired by the Engine: periodic eval (EvalHook), checkpoint
   cadence (CheckpointHook), metric logging (LoggingHook), preemption-
@@ -20,6 +22,15 @@ The step keeps everything on the device: loss and aux are 0-d tensors,
 the optimizer and the loss-scale skip never read a value back. The host
 reads losses once per epoch (the epoch record), and per step only when
 a divergence guard is configured.
+
+With more than one rank, every rank runs the same Engine loop on the
+same seeded batch stream. Loss and aux are global, so the divergence
+guards decide alike everywhere; every rank evaluates (the host oracle
+is deterministic and the params are identical, so the scores are too);
+a stop requested on any rank (a preemption signal) is all-reduced after
+each step, so every rank stops at the same step; rank 0 alone writes
+checkpoints and logs, after the ranks' error-feedback residuals are
+gathered; on resume rank 0 picks the step every rank restores.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Protocol,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.batching import Sampler, batch_to_device
 from repro_torch.core.gcn import GCNConfig, gcn_loss, init_params, micro_f1
@@ -45,6 +57,7 @@ from repro_torch.core.precision import (all_finite, init_scale_state,
                                         update_scale_state)
 from repro_torch.core.prefetch import prefetch_iter
 from repro_torch.device import resolve_device
+from repro_torch.kernels.block_spmm import BlockEllAdj
 from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.nn.optim import Optimizer, apply_updates
@@ -118,6 +131,55 @@ def make_train_step(cfg: GCNConfig, opt: Optimizer,
     return faults.wrap_step_faults(scaled_step)
 
 
+def _arrays(batch) -> list:
+    """The arrays of a host batch tuple, a BlockEllAdj's tensors
+    included, in order."""
+    out = []
+    for leaf in batch:
+        out.extend(leaf.tensors() if isinstance(leaf, BlockEllAdj)
+                   else [leaf])
+    return out
+
+
+def _copy_batch(batch):
+    """A deep copy of a host batch tuple (numpy and CPU-tensor leaves)."""
+    def copy(leaf):
+        if isinstance(leaf, BlockEllAdj):
+            return BlockEllAdj(*(None if t is None else t.clone()
+                                 for t in leaf.tensors()), checked=True)
+        return np.copy(leaf)
+    return tuple(copy(leaf) for leaf in batch)
+
+
+def _dp_groups(batches, n: int):
+    """Stream fixed-shape batches into groups of exactly n (one slice
+    per rank), grouped by leaf-shape signature so fill-adaptive K
+    buckets (k_slots="auto") never mix inside one step — the port of
+    `repro.core.engine._dp_groups`. Holds at most n batches per bucket
+    plus each bucket's first n, deep-copied (a builder reusing tile
+    buffers recycles the originals), which wrap around to fill that
+    bucket's short final group."""
+    pending, firsts = {}, {}
+    for b in batches:
+        key = tuple(None if a is None else tuple(a.shape)
+                    for a in _arrays(b))
+        first = firsts.setdefault(key, [])
+        if len(first) < n:
+            first.append(_copy_batch(b))
+        group = pending.setdefault(key, [])
+        group.append(b)
+        if len(group) == n:
+            yield group
+            pending[key] = []
+    for key, group in pending.items():      # insertion (arrival) order
+        if group:
+            first, j = firsts[key], 0
+            while len(group) < n:
+                group.append(first[j % len(first)])
+                j += 1
+            yield group
+
+
 # ----------------------------------------------------------------------
 # step backends
 # ----------------------------------------------------------------------
@@ -183,6 +245,111 @@ class SingleDeviceBackend:
 
     def params(self, state):
         return state["params"]
+
+
+class DataParallelBackend:
+    """Data-parallel training over a torch.distributed process group —
+    the port of `repro.core.engine.ShardMapBackend`, with the group's
+    ranks in the place of the mesh's data axis.
+
+    Every rank builds the same seeded batch stream and the same
+    `_dp_groups` groups of world × microbatches batches, and takes its
+    slice group[r·m:(r+1)·m] (the reference's P("data") split of the
+    stacked group). `step` draws this step's dropout seed from the
+    state's host generator (identical on every rank), offsets it by the
+    rank, and runs `dist.steps.make_gcn_train_step`. The state tree is
+    the reference's: {"dist": {"params", "opt", "err", "scale"}, "rng"}.
+
+    Host-side agreement (the stop flag, the checkpoint step to restore)
+    goes over gloo: the group itself when it is gloo, else a gloo group
+    made beside it, so no device sync is needed for it."""
+
+    def __init__(self, cfg: GCNConfig, opt: Optimizer, group=None, *,
+                 device="cuda", compression=None,
+                 microbatches: int = 1, compression_group_size=None,
+                 spmm: Callable = spmm_dispatch,
+                 spmm_xw: Callable = spmm_xw_dispatch):
+        from repro_torch.dist.steps import (init_gcn_train_state,
+                                            make_gcn_train_step)
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "DataParallelBackend needs an initialised torch.distributed "
+                "process group (torchrun, or init_process_group)")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+        self.opt = opt
+        self.group = group
+        self.compression = compression
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.microbatches = max(1, int(microbatches))
+        # _dp_groups holds up to world*microbatches raw sampler payloads
+        # (Engine's pool-depth guard)
+        self.group_size = self.world * self.microbatches
+        self._policy = policy_from_config(cfg)
+        self._init_state = init_gcn_train_state
+        self._control = (group if dist.get_backend(group) == "gloo"
+                         else dist.new_group(backend="gloo"))
+        self._step = make_gcn_train_step(
+            cfg, opt, group, compression=compression,
+            microbatches=self.microbatches,
+            compression_group_size=compression_group_size, spmm=spmm,
+            spmm_xw=spmm_xw)
+
+    def init(self, params, rng):
+        # dropout seeds are drawn on the host: a CPU generator, the same
+        # on every rank, checkpointed under "rng"
+        host_rng = torch.Generator().manual_seed(rng.initial_seed())
+        return {"dist": self._init_state(params, self.opt, self.world,
+                                         self.compression,
+                                         policy=self._policy),
+                "rng": host_rng}
+
+    def stream(self, batches):
+        r, m = self.rank, self.microbatches
+        return (group[r * m:(r + 1) * m]
+                for group in _dp_groups(batches, self.world * m))
+
+    def step(self, state, payload):
+        seed = int(torch.randint(0, 2 ** 62, (), generator=state["rng"]))
+        gen = torch.Generator(device=self.device).manual_seed(
+            seed + self.rank)
+        new, loss, aux = self._step(state["dist"], gen, payload)
+        return {"dist": new, "rng": state["rng"]}, loss, aux
+
+    def params(self, state):
+        return state["dist"]["params"]
+
+    # -- collectives the Engine uses with more than one rank ------------
+    def checkpoint_state(self, state):
+        """`state` with every rank's row of the error-feedback residuals
+        gathered into "err" (a collective: every rank calls it)."""
+        err = state["dist"].get("err")
+        if err is None or self.world == 1:
+            return state
+
+        def gather(stack):
+            rows = [torch.empty_like(stack[0]) for _ in range(self.world)]
+            dist.all_gather(rows, stack[self.rank].contiguous(),
+                            group=self.group)
+            return torch.stack(rows)
+        return {"dist": dict(state["dist"], err=tree_map(gather, err)),
+                "rng": state["rng"]}
+
+    def any_rank(self, flag: bool) -> bool:
+        """True on every rank when `flag` is True on any."""
+        t = torch.tensor([int(bool(flag))])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._control)
+        return bool(t.item())
+
+    def from_rank0(self, value):
+        """Rank 0's `value` (a picklable object) on every rank."""
+        box = [value]
+        src = 0 if self._control is None else dist.get_global_rank(
+            self._control, 0)
+        dist.broadcast_object_list(box, src=src, group=self._control)
+        return box[0]
 
 
 # ----------------------------------------------------------------------
@@ -275,9 +442,11 @@ class CheckpointHook:
 
 
 class LoggingHook:
-    """The per-epoch metric print."""
+    """The per-epoch metric print (rank 0 only)."""
 
     def on_epoch(self, engine: "Engine", rec: Dict) -> None:
+        if engine.rank != 0:
+            return
         print({k: (round(v, 4) if isinstance(v, float) else v)
                for k, v in rec.items()})
 
@@ -356,25 +525,34 @@ class Engine:
             # same-key requests; each batch makes 2 requests per ring key
             # (forward + transposed tiles), so the pool holds depth//2
             # live batches: the prefetch queue plus the in-flight and
-            # just-built ones must fit
+            # just-built ones (one device), or a full _dp_groups group
+            # plus the one being built (data parallel) must fit
+            group = int(getattr(backend, "group_size", 1))
             depth_bound = (AUTO_PREFETCH_MAX if self.prefetch_auto
                            else self.prefetch)
-            need = depth_bound + 2
+            need = group + 1 if group > 1 else depth_bound + 2
             live = pool.depth // 2
             if live < need:
                 raise ValueError(
                     f"tile-buffer pool depth {pool.depth} holds only "
                     f"{live} live batches but this run keeps {need} in "
-                    f"flight (prefetch={depth_bound} queued + 2 in "
-                    f"flight) — recycled buffers would alias live "
-                    f"payloads and silently corrupt training. Deepen the "
-                    f"pool (TileBufferPool(depth={2 * need}) on the "
-                    f"sampler), lower execution.prefetch, or disable "
+                    f"flight ("
+                    + (f"data-parallel group of {group} + 1 being built"
+                       if group > 1 else
+                       f"prefetch={depth_bound} queued + 2 in flight")
+                    + ") — recycled buffers would alias live payloads "
+                    f"and silently corrupt training. Deepen the pool "
+                    f"(TileBufferPool(depth={2 * need}) on the sampler), "
+                    f"lower execution.prefetch, or disable "
                     f"batch.reuse_tile_buffers.")
         self.batcher = batcher
         self.cfg = cfg
         self.backend = backend
         self.device = backend.device
+        # data parallel: this process's rank and the world size (rank 0
+        # writes checkpoints and logs)
+        self.rank = int(getattr(backend, "rank", 0))
+        self.world = int(getattr(backend, "world", 1))
         self.epochs = int(epochs)
         self.seed = int(seed)
         self.hooks = list(hooks)
@@ -427,9 +605,16 @@ class Engine:
     # -- checkpointing --------------------------------------------------
     def save_checkpoint(self, blocking: bool = True) -> None:
         """Persist state + loop position. Loss/aux accumulators go to the
-        metadata as host floats (exact for fp32 values)."""
+        metadata as host floats (exact for fp32 values). With more than
+        one rank every rank calls this (the residuals are gathered) and
+        rank 0 writes."""
         if self.checkpoint is None or self.state is None:
             return
+        state = self.state
+        if self.world > 1:
+            state = self.backend.checkpoint_state(state)
+            if self.rank != 0:
+                return
         epoch, step_in_epoch, losses, auxes = self._position
         meta = {
             "epoch": epoch, "step_in_epoch": step_in_epoch,
@@ -438,13 +623,22 @@ class Engine:
             "auxes": [{k: float(v) for k, v in a.items()} for a in auxes],
             "history": [dict(h) for h in self.history],
         }
-        self.checkpoint.save(self.global_step, self.state,
+        self.checkpoint.save(self.global_step, state,
                              blocking=blocking, metadata=meta)
 
     def _try_restore(self) -> bool:
         if self.checkpoint is None:
             return False
-        step = self.checkpoint.latest_valid_step()
+        if self.world > 1:
+            # rank 0 finishes its in-flight save, validates (and
+            # quarantines) alone, and every rank restores its choice
+            if self.rank == 0:
+                self.checkpoint.wait()
+            step = self.backend.from_rank0(
+                self.checkpoint.latest_valid_step() if self.rank == 0
+                else None)
+        else:
+            step = self.checkpoint.latest_valid_step()
         if step is None:
             return False
         template = self.init_state()
@@ -583,7 +777,11 @@ class Engine:
         self._consec_nonfinite = 0
         self._finite_losses = []
         start_epoch, skip_steps, losses, auxes = self._position
-        seam = self._start_seam
+        # one raw batch per step → the sampler's start_step seam maps 1:1
+        # onto stream positions (a data-parallel backend groups batches,
+        # so it keeps the build-and-discard path)
+        seam = (self._start_seam
+                and int(getattr(self.backend, "group_size", 1)) == 1)
         if self.prefetch_auto:
             self._auto_depth = None
             self._auto_ratio = None
@@ -645,6 +843,10 @@ class Engine:
                                            "step_in_epoch": step_in_epoch,
                                            "global_step": self.global_step,
                                            "loss": loss, "aux": aux})
+                    if self.world > 1 and self.backend.any_rank(self._stop) \
+                            and not self._stop:
+                        self.request_stop(reason="stop requested on "
+                                                 "another rank")
                     if self._stop:
                         break
                 if self._stop:

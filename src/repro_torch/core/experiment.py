@@ -8,9 +8,10 @@ drives both packages. The builders materialize a spec: the graph
 (`build_batcher`: the cluster batcher or a GraphSAINT sampler), the
 model config (`build_gcn_config`), the optimizer (`build_optimizer`),
 the hook stack (`build_hooks`) and the whole run (`build_experiment` →
-`Experiment` with its Engine). Runs are single device: the
-data-parallel mesh (`execution.data_shards`) is a later slice of the
-port and raises when asked for.
+`Experiment` with its Engine). `execution.data_shards` = N trains data
+parallel over the initialised torch.distributed process group of N
+ranks (`build_process_group`, the reference's `build_mesh`; launch with
+`torchrun --nproc_per_node N`).
 
 Preset registry: `preset("ppi"|"ppi_sota"|"ppi_tiny"|...)` returns a
 fresh spec from `repro_torch.configs.{ppi,reddit,amazon2m}`.
@@ -26,9 +27,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core.batching import ClusterBatcher, Sampler
-from repro_torch.core.engine import (CheckpointHook, Engine, EvalHook,
-                                     LoggingHook, PreemptionHook,
-                                     SingleDeviceBackend, TrainResult)
+from repro_torch.core.engine import (CheckpointHook, DataParallelBackend,
+                                     Engine, EvalHook, LoggingHook,
+                                     PreemptionHook, SingleDeviceBackend,
+                                     TrainResult)
 from repro_torch.core.gcn import GCNConfig
 from repro_torch.core.samplers import SaintEdgeSampler, SaintNodeSampler
 from repro_torch.graph.csr import CSRGraph
@@ -612,6 +614,31 @@ def build_optimizer(spec: ExperimentSpec) -> Optimizer:
     raise ValueError(f"unknown optimizer {o.name!r}")
 
 
+def build_process_group(spec: ExperimentSpec):
+    """None unless execution.data_shards asks for data parallelism;
+    then the default torch.distributed process group, whose size must
+    be data_shards — the counterpart of the reference's `build_mesh`
+    (its mesh of `data_shards` local devices becomes a group of
+    `data_shards` ranks, one process each)."""
+    import torch.distributed as dist
+    n = spec.execution.data_shards
+    if n is None:
+        return None
+    if not dist.is_initialized():
+        raise ValueError(
+            f"execution.data_shards={n} but no torch.distributed process "
+            f"group is initialised; launch with torchrun --nproc_per_node "
+            f"{n} (repro_torch.launch.run_experiment initialises it) or "
+            f"call init_process_group first")
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(
+            f"execution.data_shards={n} but the process group has "
+            f"{world} rank(s); launch with torchrun --nproc_per_node {n} "
+            f"or set data_shards={world}")
+    return dist.group.WORLD
+
+
 def build_hooks(spec: ExperimentSpec, graph: CSRGraph, cfg: GCNConfig,
                 checkpoint=None) -> List:
     """The standard hook stack for a spec-driven run, in firing order:
@@ -642,6 +669,7 @@ class Experiment:
     batcher: Sampler
     cfg: GCNConfig
     opt: Optimizer
+    group: Any                     # the data-parallel group, or None
     engine: Engine
 
     def fit(self, resume: bool = False) -> TrainResult:
@@ -649,27 +677,41 @@ class Experiment:
 
 
 def build_experiment(spec: ExperimentSpec, *,
-                     graph: Optional[CSRGraph] = None, device="cuda",
+                     graph: Optional[CSRGraph] = None, group=None,
+                     device="cuda",
                      extra_hooks: Sequence = ()) -> Experiment:
     """Materialize the full run: dataset → partition → batcher → model
     config → optimizer → backend → hooked Engine, on `device` ("cuda" by
     default; raises without a GPU unless "cpu" is given). Everything is
     seeded by the spec, so two builds of the same spec on one device
-    train identically. `graph` can be injected (tests, pre-loaded data);
-    `extra_hooks` append after the standard stack."""
+    train identically. `graph`/`group` can be injected (tests,
+    pre-loaded data); `extra_hooks` append after the standard stack.
+
+    With execution.data_shards (or an injected `group`) the run is data
+    parallel over the process group: device "cuda" means
+    cuda:$LOCAL_RANK (one card per rank), an explicit "cuda:N" is used
+    as given (several ranks may share a card), and every rank builds
+    the same graph, partition and batch stream."""
+    from repro_torch.device import rank_device, resolve_device
     validate(spec)
-    if spec.execution.data_shards is not None:
-        raise NotImplementedError(
-            "execution.data_shards: data-parallel training is not ported "
-            "yet (ROADMAP slice A5); leave it None for one device")
-    from repro_torch.device import resolve_device
     resolve_device(device)            # fail before building anything
+    if group is None:
+        group = build_process_group(spec)
+    if group is not None:
+        device = rank_device(device)
     fault_plan = None
     if spec.run.faults is not None:
         from repro_torch.runtime.faults import FaultPlan
         fault_plan = FaultPlan.from_dict(spec.run.faults)
     if graph is None:
-        graph = build_graph(spec)
+        if fault_plan is not None:
+            # the download fault sites fire while the dataset is
+            # materialized too, not only inside Engine.fit
+            from repro_torch.runtime.faults import fault_scope
+            with fault_scope(fault_plan):
+                graph = build_graph(spec)
+        else:
+            graph = build_graph(spec)
     if spec.batch.sampler == "cluster":
         parts, stats = build_partition(spec, graph)
     else:
@@ -678,7 +720,14 @@ def build_experiment(spec: ExperimentSpec, *,
     batcher = build_batcher(spec, graph, parts)
     cfg = build_gcn_config(spec, graph)
     opt = build_optimizer(spec)
-    backend = SingleDeviceBackend(cfg, opt, device=device)
+    if group is not None:
+        backend = DataParallelBackend(
+            cfg, opt, group, device=device,
+            compression=spec.execution.compression,
+            microbatches=spec.execution.microbatches,
+            compression_group_size=spec.execution.compression_group_size)
+    else:
+        backend = SingleDeviceBackend(cfg, opt, device=device)
     checkpoint = None
     if spec.run.checkpoint_dir:
         from repro_torch.runtime.checkpoint import CheckpointManager
@@ -695,7 +744,7 @@ def build_experiment(spec: ExperimentSpec, *,
                     prefetch_timeout=spec.execution.prefetch_timeout_s)
     return Experiment(spec=spec, graph=graph, parts=parts,
                       partition_stats=stats, batcher=batcher, cfg=cfg,
-                      opt=opt, engine=engine)
+                      opt=opt, group=group, engine=engine)
 
 
 def run_experiment(spec: ExperimentSpec, *, resume: bool = False,

@@ -2,8 +2,9 @@
 evaluation — the port of `repro.core.trainer`.
 
 `train_cluster_gcn` is a thin wrapper over the step-driven Engine
-(core.engine): a SingleDeviceBackend, the standard hooks (periodic
-eval, verbose logging), and `Engine.fit()`. For the declarative path —
+(core.engine): it picks the StepBackend (one device, or data parallel
+over a torch.distributed process group when `mesh=` is given), the
+standard hooks (periodic eval, verbose logging), and `Engine.fit()`. For the declarative path —
 presets, checkpoint/resume, preemption — see core.experiment and
 `python -m repro_torch.launch.run_experiment`.
 
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.batching import ClusterBatcher
-from repro_torch.core.engine import (Engine, EvalHook, LoggingHook,
+from repro_torch.core.engine import (DataParallelBackend, Engine,
+                                     EvalHook, LoggingHook,
                                      SingleDeviceBackend, TrainResult)
 from repro_torch.core.gcn import GCNConfig, micro_f1, params_tree
 from repro_torch.graph.csr import CSRGraph
@@ -84,13 +86,21 @@ def train_cluster_gcn(graph: CSRGraph, batcher: ClusterBatcher,
                       cfg: GCNConfig, opt: Optimizer, num_epochs: int,
                       seed: int = 0, eval_every: int = 0,
                       eval_graph: CSRGraph | None = None,
-                      verbose: bool = False, sparse_adj: bool = False,
+                      verbose: bool = False, mesh=None, compression=None,
+                      dp_axis: str = "data", sparse_adj: bool = False,
                       prefetch: int = 0, device="cuda") -> TrainResult:
-    """Paper Algorithm 1 on one device (`device` defaults to "cuda" and
-    raises without a GPU unless "cpu" is given). `graph` is the training
-    graph (inductive); `eval_graph` (default: graph) the full graph for
-    evaluation. `sparse_adj=True` switches the batcher to BlockEllAdj
-    batches, so every Â·(XW) runs through the block-ELL kernels.
+    """Paper Algorithm 1 (`device` defaults to "cuda" and raises without
+    a GPU unless "cpu" is given). `graph` is the training graph
+    (inductive); `eval_graph` (default: graph) the full graph for
+    evaluation. With `mesh=` — a torch.distributed process group, where
+    the reference takes a jax Mesh — it trains data parallel over the
+    group's ranks (one cluster batch per rank per step, gradients
+    all-reduced, optionally compressed: `repro_torch.dist.compression`);
+    `dp_axis` is the reference's name of the mesh's data axis, kept for
+    its signature: a process group has that one axis only.
+    `sparse_adj=True` switches the batcher to
+    BlockEllAdj batches, so every Â·(XW) runs through the block-ELL
+    kernels.
     `prefetch=N` builds batches N ahead on a background thread,
     including the copy to the device. Eval runs every `eval_every`
     epochs on the val split, falling back to the test split with a
@@ -104,7 +114,13 @@ def train_cluster_gcn(graph: CSRGraph, batcher: ClusterBatcher,
             "payload-time A'X aggregation to match the model",
             stacklevel=2)
         batcher = dataclasses.replace(batcher, precompute_ax=True)
-    backend = SingleDeviceBackend(cfg, opt, device=device)
+    if mesh is not None:
+        from repro_torch.device import rank_device
+        backend = DataParallelBackend(cfg, opt, mesh,
+                                      device=rank_device(device),
+                                      compression=compression)
+    else:
+        backend = SingleDeviceBackend(cfg, opt, device=device)
     hooks = []
     if eval_every:
         hooks.append(EvalHook(eval_graph if eval_graph is not None

@@ -6,6 +6,8 @@ to the CPU unless the caller passes device="cpu" (as the CPU tests do).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -26,4 +28,21 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' "
                          f"or 'cpu'")
+    return dev
+
+
+def rank_device(device) -> torch.device:
+    """The device of this data-parallel rank: "cuda" without an index
+    means cuda:$LOCAL_RANK (torchrun's one card per rank, raising when
+    LOCAL_RANK names a card that is not visible); "cuda:N" and "cpu"
+    are used as given."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"LOCAL_RANK={local} but only {torch.cuda.device_count()} "
+                f"CUDA device(s) are visible; launch at most that many "
+                f"ranks per host, or pass an explicit device='cuda:N'")
+        dev = torch.device("cuda", local)
     return dev

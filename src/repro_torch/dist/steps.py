@@ -1,19 +1,40 @@
-"""Step builders — the single-device counterparts of
-`repro.dist.steps.make_prefill_step` / `make_decode_step`.
+"""Step builders — the port of `repro.dist.steps`.
 
-The reference closes over a `CellPolicy` and leaves sharding to the jit
-in/out shardings; the port runs on one card, so a step is a plain
-closure over the architecture config. The data-parallel GCN step
-(`make_gcn_train_step`) will live beside them (ROADMAP A5).
+LM serving: `make_prefill_step` / `make_decode_step` are plain closures
+over the architecture config (the port runs a model on one card).
+
+GCN data parallel: `make_gcn_train_step` runs the paper's training step
+on every rank of a `torch.distributed` process group, where the
+reference runs it under shard_map over a mesh's data axis. Each rank
+takes the gradient of the mean loss over its own cluster batches (the
+block-diagonal objective of Eq. 6/7 decomposes exactly across
+clusters), and the gradients meet in one all-reduce, optionally
+compressed (`repro_torch.dist.compression`). Every rank then applies
+the same optimizer update, so the params stay identical everywhere.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, List
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.gcn import GCNConfig, gcn_loss
+from repro_torch.core.precision import (all_finite, init_scale_state,
+                                        policy_from_config, scale_loss,
+                                        select_tree, unscale_grads,
+                                        update_scale_state)
+from repro_torch.dist.compression import (DEFAULT_GROUP_SIZE,
+                                          error_feedback_message)
+from repro_torch.kernels.ops import spmm as spmm_dispatch
+from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import decode_step, prefill
+from repro_torch.nn.optim import Optimizer, apply_updates
+from repro_torch.nn.tree import Tree, tree_leaves, tree_map
+from repro_torch.runtime import faults
+
+COMPRESSIONS = (None, "bf16", 4, 8)
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
@@ -32,3 +53,192 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
         nxt = logits.argmax(-1).to(torch.int32)[:, None]
         return nxt, logits, caches
     return step
+
+
+# ----------------------------------------------------------------------
+# GCN data-parallel step
+# ----------------------------------------------------------------------
+def init_gcn_train_state(params: Tree, opt: Optimizer, nshards: int,
+                         compression=None, policy=None) -> Dict:
+    """{params, opt} (+ the error-feedback residuals "err", stacked on a
+    leading shard axis of size `nshards`, when int compression is on;
+    + the loss "scale" state when the precision policy scales), on the
+    params' device — `repro.dist.steps.init_gcn_train_state`. Rank r
+    reads and writes row r of "err"; the data-parallel backend gathers
+    the rows before a checkpoint."""
+    state = {"params": params, "opt": opt.init(params)}
+    if isinstance(compression, int):
+        state["err"] = tree_map(
+            lambda p: torch.zeros((nshards,) + tuple(p.shape),
+                                  dtype=torch.float32, device=p.device),
+            params)
+    if policy is not None and policy.scaled:
+        device = tree_leaves(params)[0].device
+        state["scale"] = init_scale_state(policy, device)
+    return state
+
+
+def _poison_batches(batches, rule):
+    return [faults.poison_batch(b, rule) for b in batches]
+
+
+def make_gcn_train_step(cfg: GCNConfig, opt: Optimizer, group=None, *,
+                        compression=None, microbatches: int = 1,
+                        compression_group_size=None,
+                        spmm: Callable = spmm_dispatch,
+                        spmm_xw: Callable = spmm_xw_dispatch) -> Callable:
+    """Data-parallel Cluster-GCN step over `group` (a torch.distributed
+    process group; None is the default group) — the counterpart of
+    `repro.dist.steps.make_gcn_train_step`, whose mesh axis becomes the
+    group's ranks.
+
+    The returned function maps
+        (state, generator, batches) -> (state, loss, aux)
+    where `batches` is THIS rank's list of q_local device batch tuples
+    (the rank's slice of the reference's stacked group) and `generator`
+    draws this rank's dropout. Each rank takes the gradient of the mean
+    loss over its batches through `gcn_loss` with the port's
+    `spmm`/`spmm_xw` dispatch (on CUDA: the fused kernel forward and the
+    block-ELL SpMM backward), then the gradients mean-all-reduce:
+      compression=None   exact fp32 sum
+      compression="bf16" the bf16-rounded message, summed in fp32
+      compression=4|8    int4/int8 symmetric quantization with error
+                         feedback, one scale per `compression_group_size`
+                         elements (None: DEFAULT_GROUP_SIZE)
+    All leaves (and the loss and aux) travel in ONE all-reduce of one
+    flat fp32 buffer; quantization stays per leaf, as in the reference.
+    Loss is the global mean, aux the global sums.
+
+    microbatches=m > 1 splits the q_local batches into m sequential
+    chunks, accumulating fp32 gradients (divided by m) before the one
+    all-reduce. Loss scaling unscales before the reduce, so the
+    residuals carry true-unit gradients, and a rank that overflowed
+    spreads NaN to every rank through the reduce (quantization turns an
+    infinite scale into NaN codes): the update skip is the same on
+    every rank.
+    """
+    if compression not in COMPRESSIONS:
+        raise ValueError(
+            f"compression must be None, 'bf16', 4 or 8; got {compression!r}")
+    m = int(microbatches)
+    if m < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    gsize = DEFAULT_GROUP_SIZE if compression_group_size is None \
+        else int(compression_group_size)
+    if gsize < 1:
+        raise ValueError(f"compression_group_size must be >= 1, got "
+                         f"{compression_group_size}")
+    bits = compression if isinstance(compression, int) else None
+    pol = policy_from_config(cfg)
+    aux_keys = ("tp", "fp", "fn", "n") if cfg.multilabel \
+        else ("correct", "n")
+
+    def local_grads(params, batches, generator, scale):
+        """(mean loss, summed aux, grads) over this rank's batches."""
+        q_local = len(batches)
+        if q_local % m:
+            raise ValueError(f"{q_local} local batches not divisible by "
+                             f"microbatches={m}")
+        mb = q_local // m
+        grads, loss_sum = None, 0.0
+        aux = {k: 0.0 for k in aux_keys}
+        for c in range(m):
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            params)
+            losses = []
+            for bt in batches[c * mb:(c + 1) * mb]:
+                loss, a = gcn_loss(live, bt, cfg, train=True,
+                                   generator=generator, spmm=spmm,
+                                   spmm_xw=spmm_xw)
+                losses.append(loss)
+                aux = {k: aux[k] + a[k].detach() for k in aux_keys}
+            loss = torch.stack(losses).mean()
+            target = scale_loss(loss, scale) if pol.scaled else loss
+            g = torch.autograd.grad(target, tree_leaves(live))
+            if m > 1:
+                g = [x.float() for x in g]
+            grads = list(g) if grads is None else \
+                [a + b for a, b in zip(grads, g)]
+            loss_sum = loss_sum + loss.detach()
+        if m > 1:
+            grads = [g / m for g in grads]
+        return loss_sum / m, aux, grads
+
+    def step(state, generator, batches):
+        params = state["params"]
+        scale = state["scale"]["scale"] if pol.scaled else None
+        loss, aux, grads = local_grads(params, batches, generator, scale)
+        with torch.no_grad():
+            if pol.scaled:
+                grads = tree_leaves(unscale_grads(grads, scale))
+            new_state = dict(state)
+            if bits is not None:
+                rank = dist.get_rank(group)
+                errs = tree_leaves(state["err"])
+                msgs, rows = zip(*(
+                    error_feedback_message(g, e[rank], bits, gsize)
+                    for g, e in zip(grads, errs)))
+            elif compression == "bf16":
+                msgs = [g.to(torch.bfloat16).float() for g in grads]
+            else:
+                msgs = [g.float() for g in grads]
+            scalars = torch.stack([loss.float()]
+                                  + [torch.as_tensor(aux[k]).float()
+                                     .to(loss.device) for k in aux_keys])
+            flat = torch.cat([x.reshape(-1) for x in msgs] + [scalars])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            world = dist.get_world_size(group)
+            out, off = [], 0
+            for g in grads:
+                n = g.numel()
+                out.append((flat[off:off + n] / world).view(g.shape)
+                           .to(g.dtype))
+                off += n
+            total = flat[off:]
+            synced = _unflatten_like(params, out)
+            updates, opt_state = opt.update(synced, state["opt"], params)
+            new_params = apply_updates(params, updates)
+            if bits is not None:
+                new_err = _unflatten_like(params, [
+                    _replace_row(e, rank, r) for e, r in zip(errs, rows)])
+            if pol.scaled:
+                # the reduced grads are NaN everywhere if ANY rank
+                # overflowed, so every rank takes the same branch
+                finite = all_finite(synced)
+                new_state["params"] = select_tree(finite, new_params,
+                                                  params)
+                new_state["opt"] = select_tree(finite, opt_state,
+                                               state["opt"])
+                if bits is not None:
+                    new_err = select_tree(finite, new_err, state["err"])
+                new_state["scale"] = update_scale_state(state["scale"],
+                                                        finite, pol)
+            else:
+                new_state["params"] = new_params
+                new_state["opt"] = opt_state
+            if bits is not None:
+                new_state["err"] = new_err
+        loss = total[0] / world
+        aux = {k: total[1 + i] for i, k in enumerate(aux_keys)}
+        return new_state, loss, aux
+
+    # step.nonfinite_loss injection seam (runtime.faults): the batches
+    # are the last argument, as in the single-device step
+    def wrapped(state, generator, batches):
+        rule = faults.maybe_fail("step.nonfinite_loss")
+        if rule is not None:
+            batches = _poison_batches(batches, rule)
+        return step(state, generator, batches)
+    return wrapped
+
+
+def _unflatten_like(tree: Tree, leaves: List[torch.Tensor]) -> Tree:
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _replace_row(stack: torch.Tensor, r: int, row: torch.Tensor
+                 ) -> torch.Tensor:
+    """A new (world, ...) stack with row r replaced (the other rows are
+    other ranks' residuals, which this rank never reads)."""
+    return torch.cat([stack[:r], row[None], stack[r + 1:]])

@@ -177,7 +177,8 @@ def copurchase_graph(spec: CoPurchaseSpec) -> CSRGraph:
 
 
 # Named dataset registry mirroring the paper's Table 3 (scaled for CPU),
-# plus the real benchmark datasets under their *_real / ogbn_* names.
+# plus the real benchmark datasets (repro_torch.graph.datasets) under
+# their *_real / ogbn_* names.
 def make_dataset(name: str, scale: float = 1.0, seed: int = 0,
                  cache_dir: str | None = None,
                  mmap: bool = True) -> CSRGraph:
@@ -185,18 +186,21 @@ def make_dataset(name: str, scale: float = 1.0, seed: int = 0,
     (ppi, reddit, amazon2m, cora, structural) are seeded generators and
     honor `scale` — bit-identical to `repro.graph.make_dataset` for the
     same (name, scale, seed). Real names (ppi_real, reddit_real,
-    ogbn_arxiv, ogbn_products) are registered but their loader
-    (download, checksum, mmap cache) is not ported yet: they raise
-    NotImplementedError. `cache_dir`/`mmap` only apply to real
-    datasets."""
+    ogbn_arxiv, ogbn_products) load the actual benchmark through the
+    disk cache (`cache_dir`/`mmap` — repro_torch.graph.datasets) and
+    reject scale != 1 loudly: real data cannot be resampled, *_tiny
+    recipes shrink the model/epochs instead. `seed` is ignored for real
+    datasets (their splits are fixed upstream)."""
     name = name.lower()
-    from repro_torch.graph.datasets import REAL_DATASETS
+    from repro_torch.graph.datasets import REAL_DATASETS, load_dataset
     if name in REAL_DATASETS:
-        raise NotImplementedError(
-            f"real dataset {name!r}: loading real datasets (download, "
-            f"checksums, mmap cache) is not ported to repro_torch yet — "
-            f"it comes with the real-datasets slice of the port, after "
-            f"the training slice; use a synthetic dataset name meanwhile")
+        if scale != 1.0:
+            raise ValueError(
+                f"data.scale={scale} is not applicable to the real "
+                f"dataset {name!r} — real graphs cannot be resampled; "
+                f"keep scale=1.0 (the *_real_tiny presets shrink the "
+                f"recipe, not the data)")
+        return load_dataset(name, cache_dir=cache_dir, mmap=mmap)
     if name == "ppi":  # multi-label, dense-ish
         return stochastic_block_model(SBMSpec(
             num_nodes=max(256, int(14_000 * scale)), num_communities=50,

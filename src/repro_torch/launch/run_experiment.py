@@ -8,6 +8,9 @@
     python -m repro_torch.launch.run_experiment --spec results/.../spec.json \
         --resume
     python -m repro_torch.launch.run_experiment --preset reddit --print-spec
+    torchrun --nproc_per_node 2 -m repro_torch.launch.run_experiment \
+        --preset ppi_sota --set execution.data_shards=2 \
+        --set execution.compression=8
 
 Start from a registered preset (--preset, see --list-presets) or a spec
 JSON file (--spec), layer `--set section.field=value` overrides (values
@@ -17,6 +20,12 @@ the newest checkpoint in run.checkpoint_dir on the same trajectory as an
 uninterrupted run. `--device` defaults to "cuda"; a host without a GPU
 must pass `--device cpu`.
 
+`execution.data_shards=N` trains data parallel: under `torchrun
+--nproc_per_node N` each rank joins the process group torchrun
+describes (NCCL on CUDA, one card per rank: cuda:$LOCAL_RANK; gloo on
+the CPU); without torchrun only N=1 runs, as a world of 1. Rank 0 alone
+writes the two files below and prints.
+
 Every run writes its reproducibility artifact next to its metrics:
     <results-dir>/<spec.name>/spec.json     resolved spec (round-trips)
     <results-dir>/<spec.name>/metrics.json  history + final eval score
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import sys
 import warnings
@@ -55,6 +65,34 @@ def load_spec(args) -> ExperimentSpec:
         # KeyError: unknown --set path; ValueError: malformed item
         raise SystemExit(str(e).strip('"'))
     return validate(spec)
+
+
+def init_distributed(spec: ExperimentSpec, device) -> bool:
+    """Initialise the default process group that execution.data_shards
+    asks for: from torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR, MASTER_PORT), or, without torchrun, a world of 1 for
+    data_shards=1. NCCL on CUDA, gloo on the CPU. Returns True when this
+    call initialised the group (the caller destroys it)."""
+    import torch
+    import torch.distributed as dist
+    if spec.execution.data_shards is None or dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        from repro_torch.device import rank_device
+        torch.cuda.set_device(rank_device(device))
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    elif spec.execution.data_shards == 1:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    else:
+        raise SystemExit(
+            f"execution.data_shards={spec.execution.data_shards} needs "
+            f"one process per rank: torchrun --nproc_per_node "
+            f"{spec.execution.data_shards} -m "
+            f"repro_torch.launch.run_experiment ...")
+    return True
 
 
 def main(argv=None) -> int:
@@ -96,13 +134,26 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"[run_experiment] {e}")
 
+    import torch.distributed as dist
+    owns_group = init_distributed(spec, device)
+    try:
+        return _run(spec, args, device)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(spec: ExperimentSpec, args, device) -> int:
     from repro_torch.core.experiment import build_experiment
     exp = build_experiment(spec, device=device)
+    device = exp.engine.device
+    rank = exp.engine.rank
     # the reproducibility artifact goes down BEFORE training so a
     # hard-killed run can still be resumed via --spec <...>/spec.json
     out = pathlib.Path(args.results_dir) / spec.name
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "spec.json").write_text(spec.to_json(indent=2))
+    if rank == 0:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "spec.json").write_text(spec.to_json(indent=2))
     steps = exp.batcher.steps_per_epoch()
     if exp.partition_stats is not None:
         sampler_desc = (f"{spec.partition.num_parts} parts (within "
@@ -114,11 +165,20 @@ def main(argv=None) -> int:
     else:    # partition-free SAINT sampler
         sampler_desc = (f"{spec.batch.sampler} sampler "
                         f"(budget {exp.batcher.budget})")
-    print(f"[experiment] {spec.name}: {exp.graph.num_nodes} nodes, "
-          f"{exp.graph.num_edges // 2} edges, {sampler_desc}, "
-          f"{steps} steps/epoch x {spec.run.epochs} epochs on {device}"
-          f"{', resume' if args.resume else ''}", file=sys.stderr)
+    world = exp.engine.world
+    if world > 1 or exp.group is not None:
+        sampler_desc += (f", data parallel over {world} rank(s) "
+                         f"(compression {spec.execution.compression}, "
+                         f"{exp.engine.backend.group_size} batches a step)")
+    if rank == 0:
+        print(f"[experiment] {spec.name}: {exp.graph.num_nodes} nodes, "
+              f"{exp.graph.num_edges // 2} edges, {sampler_desc}, "
+              f"{steps} batches/epoch x {spec.run.epochs} epochs on "
+              f"{device}{', resume' if args.resume else ''}",
+              file=sys.stderr)
     result = exp.fit(resume=args.resume)
+    if rank != 0:
+        return 0
 
     # final eval on the explicit split (or the warn-on-fallback "auto")
     from repro_torch.core.engine import resolve_eval_mask

@@ -12,9 +12,9 @@ one switchboard every hardened subsystem consults:
     directly). Firing is deterministic per (plan seed, site,
     occurrence index): the same plan replays the same failures.
   * `maybe_fail(site)` — the injection-site helper threaded through
-    runtime/checkpoint.py, core/prefetch.py and core/engine.py (the
-    download sites arrive with the real-datasets slice). With no plan
-    installed it is a single global-is-None check.
+    graph/datasets.py, runtime/checkpoint.py, core/prefetch.py and
+    core/engine.py. With no plan installed it is a single
+    global-is-None check.
   * `install` / `fault_scope` — process-global activation. The Engine
     scopes its plan around fit(); build_experiment scopes dataset
     materialization so download faults fire too.

@@ -1,6 +1,6 @@
-"""Runtime resilience: preemption handling, straggler detection and
-heartbeats — a host copy of `repro.runtime.resilience` (its
-`ElasticPlan`, the multi-host seam, waits for the data-parallel slice).
+"""Runtime resilience: preemption handling, straggler detection,
+heartbeats and the elastic restart plan — a host copy of
+`repro.runtime.resilience`.
 
 At 1000+ nodes the failure model is: (a) SIGTERM preemptions with a
 grace window, (b) silent node loss (heartbeat timeout), (c) stragglers
@@ -137,3 +137,41 @@ class HeartbeatMonitor:
         with self._lock:
             return [h for h, t in self._last.items()
                     if now - t > self.timeout]
+
+
+# ----------------------------------------------------------------------
+# elastic restart protocol
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class ElasticPlan:
+    """Decision record for a restart with a different healthy-rank set
+    — the multi-host seam; nothing in-process consumes it yet, as in
+    the reference.
+
+    Checkpoints store params and optimizer state unsharded with logical
+    shapes (runtime/checkpoint.py), so a restart onto another world
+    size restores them unchanged (the int-compression residuals are
+    stacked per rank, one row per old rank); the batch stream is a pure
+    function of (seed, epoch), so a re-shard never replays or skips
+    batches beyond the current step."""
+    old_devices: int
+    new_devices: int
+    new_mesh_shape: tuple
+    batch_adjustment: str   # 'keep_global' (more grad accum) | 'scale_down'
+
+    @staticmethod
+    def plan(old_devices: int, healthy_devices: int,
+             axis_order=("data",)) -> "ElasticPlan":
+        # shrink to the largest power-of-two device count that is
+        # <= healthy (keeps mesh factorizations valid)
+        new = 1
+        while new * 2 <= healthy_devices:
+            new *= 2
+        return ElasticPlan(old_devices=old_devices, new_devices=new,
+                           new_mesh_shape=(new,),
+                           batch_adjustment="keep_global")
+
+    def microbatch_multiplier(self) -> int:
+        """keep_global: global batch is preserved by scaling gradient
+        accumulation by old/new."""
+        return max(1, self.old_devices // self.new_devices)

@@ -91,9 +91,22 @@ def _inner_activation(z: torch.Tensor, h_in: Optional[torch.Tensor],
     return z
 
 
-def _host_features(graph: CSRGraph, rows=slice(None)) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(graph.features[rows],
-                                                 dtype=np.float32))
+def _host_features(graph: CSRGraph, rows) -> torch.Tensor:
+    """`rows` of the (possibly read-only, memory-mapped) features as a
+    host tensor: a copy of those rows only, never of the whole matrix."""
+    return torch.from_numpy(np.array(graph.features[rows], np.float32))
+
+
+def _device_features(graph: CSRGraph, device, row_chunk: int
+                     ) -> torch.Tensor:
+    """The whole feature matrix on `device`, copied `row_chunk` rows at
+    a time (the host holds one chunk, not an (N, F) copy)."""
+    n, f = graph.features.shape
+    out = torch.empty((n, f), dtype=torch.float32, device=device)
+    for s in range(0, n, row_chunk):
+        e = min(n, s + row_chunk)
+        out[s:e] = _host_features(graph, slice(s, e)).to(device)
+    return out
 
 
 @torch.no_grad()
@@ -131,9 +144,9 @@ def full_graph_embeddings(params: GCN, graph: CSRGraph, parts: np.ndarray,
 
     h: Optional[torch.Tensor] = None     # None → stream graph.features
     if cfg.precompute_ax:
-        h = propagate(_host_features(graph).to(device))
+        h = propagate(_device_features(graph, device, row_chunk))
     elif cfg.residual:
-        h = _host_features(graph).to(device)
+        h = _device_features(graph, device, row_chunk)
     for i, layer in enumerate(params.layers):
         if h is None:
             z = torch.empty((n, layer.w.shape[1]), dtype=torch.float32,

@@ -1,0 +1,279 @@
+"""Process helpers for the port's data-parallel tests.
+
+* `run_reference(code)`: the reference on a forced 2-device CPU host, in
+  a subprocess of its own (XLA_FLAGS must be set before jax starts), as
+  tests/conftest.py's `run_distributed` runs it.
+* `run_plan(tasks)`: one gloo world of `world` CPU ranks, each
+  `python _torch_dist.py <rank> <world> <port> <plan.json>`, that runs
+  the plan's tasks in order inside one process group:
+    {"kind": "experiment", "spec": <spec JSON path>, "p0": <npz of
+     initial params or null>, "stop_at": <step or null>, "stop_rank":
+     <the only rank that asks to stop, or null for all>, "resume":
+     bool, "out": <dir>}  — `build_experiment(spec).fit()` on the port;
+     rank r writes <out>/state_<r>.npz (its whole Engine state,
+     checkpoint key → array) and rank 0 <out>/result.json (history,
+     global step, preempted, stop reason).
+    {"kind": "wrapper", "spec": <spec JSON path>, "out": <dir>}  —
+     `train_cluster_gcn(..., mesh=<the world group>)` against the same
+     spec's `build_experiment(...).fit()`; rank 0 writes
+     <out>/result.json.
+    {"kind": "steps", "inputs": <npz>, "cases": [[layout, compression,
+     microbatches], ...], "steps": n, "out": <dir>}  — the bare
+     `make_gcn_train_step` on the batches and params of `inputs`.
+  Every process has a timeout and is killed if it outlives it.
+
+Inputs and results cross as files in a directory the caller owns.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+TESTS = os.path.abspath(os.path.dirname(__file__))
+ADJ_FIELDS = ("blocks", "block_cols", "blocks_t", "block_cols_t", "row_k",
+              "row_k_t")
+BATCH_FIELDS = ("features", "labels", "node_mask", "loss_mask", "num_real")
+
+
+def _env(**extra):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, TESTS]),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    env.update(extra)
+    return env
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_reference(code: str, devices: int = 2, timeout: float = 420) -> str:
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=timeout, env=_env(
+            XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}"))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
+def run_plan(tasks, workdir, world: int = 2, timeout: float = 420) -> None:
+    """Run `tasks` on a gloo world of `world` ranks, asserting every rank
+    exited 0 within `timeout` seconds."""
+    plan = os.path.join(str(workdir), f"plan-{free_port()}.json")
+    with open(plan, "w") as f:
+        json.dump(tasks, f)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(world),
+         str(port), plan], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=_env()) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (rc, err) in enumerate(outs):
+        assert rc == 0, f"rank {rank} exited {rc}:\n{err[-4000:]}"
+
+
+# ----------------------------------------------------------------------
+# batches and params as files
+# ----------------------------------------------------------------------
+def save_batches(arrays: dict, prefix: str, batches) -> None:
+    """Host batch tuples (port `ClusterBatch.astuple()`) into `arrays`
+    under `<prefix>_<i>_<field>`."""
+    for i, (adj, *rest) in enumerate(batches):
+        if hasattr(adj, "tensors"):
+            for name, t in zip(ADJ_FIELDS, adj.tensors()):
+                if t is not None:
+                    arrays[f"{prefix}_{i}_adj_{name}"] = t.numpy()
+        else:
+            arrays[f"{prefix}_{i}_adj"] = adj
+        for name, a in zip(BATCH_FIELDS, rest):
+            arrays[f"{prefix}_{i}_{name}"] = a
+
+
+def load_batches(data, prefix: str, n: int, make_adj):
+    """The first `n` batches under `prefix`; a block-ELL adjacency goes
+    through make_adj(dict of its fields)."""
+    out = []
+    for i in range(n):
+        key = f"{prefix}_{i}_adj"
+        if key in data:
+            adj = data[key]
+        else:
+            adj = make_adj({f: data[f"{key}_{f}"] if f"{key}_{f}" in data
+                            else None for f in ADJ_FIELDS})
+        out.append((adj,) + tuple(data[f"{prefix}_{i}_{f}"]
+                                  for f in BATCH_FIELDS))
+    return out
+
+
+def params_npz(params) -> dict:
+    """A {"layers": [{name: array}]} tree as flat npz keys."""
+    return {f"layers_{i}_{k}": v for i, layer in enumerate(params["layers"])
+            for k, v in layer.items()}
+
+
+def npz_params(data) -> dict:
+    """The inverse of `params_npz` (a mapping or an opened npz)."""
+    layers = {}
+    for key in data:
+        _, i, k = key.split("_", 2)
+        layers.setdefault(int(i), {})[k] = data[key]
+    return {"layers": [layers[i] for i in sorted(layers)]}
+
+
+# ----------------------------------------------------------------------
+# the ranks' side
+# ----------------------------------------------------------------------
+def _port_params(tree):
+    import numpy as np
+    import torch
+    return {"layers": [{k: torch.from_numpy(np.array(v, np.float32))
+                        for k, v in layer.items()}
+                       for layer in tree["layers"]]}
+
+
+def _save_state(path, state):
+    import numpy as np
+    from repro_torch.runtime.checkpoint import _flatten_with_paths, _to_host
+    np.savez(path, **{k.replace("/", "__"): _to_host(v)
+                      for k, v in _flatten_with_paths(state)})
+
+
+def _experiment(task, rank):
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import StopAtStepHook
+    from repro_torch.core.experiment import ExperimentSpec, build_experiment
+    with open(task["spec"]) as f:
+        spec = ExperimentSpec.from_json(f.read())
+    stop_rank = task.get("stop_rank")
+    hooks = ([StopAtStepHook(task["stop_at"])] if task.get("stop_at")
+             and stop_rank in (None, rank) else [])
+    exp = build_experiment(spec, device="cpu", extra_hooks=hooks)
+    if task.get("p0"):
+        backend = exp.engine.backend
+        p0 = _port_params(npz_params(np.load(task["p0"])))
+        exp.engine.init_state = lambda: backend.init(
+            p0, torch.Generator().manual_seed(spec.run.seed + 1))
+    res = exp.fit(resume=bool(task.get("resume")))
+    os.makedirs(task["out"], exist_ok=True)
+    _save_state(os.path.join(task["out"], f"state_{rank}.npz"),
+                exp.engine.state)
+    if rank == 0:
+        with open(os.path.join(task["out"], "result.json"), "w") as f:
+            json.dump({"history": res.history,
+                       "global_step": exp.engine.global_step,
+                       "preempted": exp.engine.preempted,
+                       "stop_reason": exp.engine.stop_reason}, f)
+
+
+def _wrapper(task, rank):
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.experiment import ExperimentSpec, build_experiment
+    from repro_torch.core.trainer import train_cluster_gcn
+    from repro_torch.nn.tree import tree_leaves
+    with open(task["spec"]) as f:
+        spec = ExperimentSpec.from_json(f.read())
+    r_spec = build_experiment(spec, device="cpu").fit()
+    one = dataclasses.replace(
+        spec, execution=dataclasses.replace(spec.execution,
+                                            data_shards=None))
+    exp = build_experiment(one, device="cpu")
+    r_wrap = train_cluster_gcn(
+        exp.graph, exp.batcher, exp.cfg, exp.opt,
+        num_epochs=spec.run.epochs, seed=spec.run.seed,
+        eval_every=spec.run.eval_every, mesh=dist.group.WORLD,
+        compression=spec.execution.compression, device="cpu")
+    strip = lambda h: [{k: v for k, v in x.items()  # noqa: E731
+                        if k not in ("time", "flagged_steps")} for x in h]
+    if rank == 0:
+        os.makedirs(task["out"], exist_ok=True)
+        with open(os.path.join(task["out"], "result.json"), "w") as f:
+            json.dump({
+                "same_history": strip(r_wrap.history) == strip(
+                    r_spec.history),
+                "same_params": all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(r_wrap.params),
+                    tree_leaves(r_spec.params))),
+                "epochs": len(r_wrap.history)}, f)
+
+
+def _steps(task, rank, world):
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import batch_to_device
+    from repro_torch.core.gcn import GCNConfig
+    from repro_torch.dist.steps import (init_gcn_train_state,
+                                        make_gcn_train_step)
+    from repro_torch.kernels.block_spmm import BlockEllAdj
+    from repro_torch.nn import optim
+    data = np.load(task["inputs"])
+    cfgs = json.loads(str(data["cfgs"]))
+    p0 = npz_params({k[3:]: data[k] for k in data.files
+                     if k.startswith("p0_")})
+    os.makedirs(task["out"], exist_ok=True)
+    for layout, comp, m in task["cases"]:
+        cfg = GCNConfig(**cfgs[layout])
+        opt = optim.adamw(task["lr"])
+        n = task["steps"] * world * m
+        batches = load_batches(data, layout, n, lambda d: BlockEllAdj(
+            *(None if d[f] is None else torch.from_numpy(d[f])
+              for f in ADJ_FIELDS)))
+        step = make_gcn_train_step(cfg, opt, None, compression=comp,
+                                   microbatches=m)
+        state = init_gcn_train_state(_port_params(p0), opt, world, comp)
+        gen = torch.Generator().manual_seed(0)
+        out = {}
+        for s in range(task["steps"]):
+            group = batches[s * world * m:(s + 1) * world * m]
+            mine = batch_to_device(group[rank * m:(rank + 1) * m], "cpu")
+            state, loss, aux = step(state, gen, mine)
+            out[f"loss_{s}"] = loss.numpy()
+            for k, v in aux.items():
+                out[f"aux_{s}_{k}"] = v.numpy()
+        from repro_torch.runtime.checkpoint import _flatten_with_paths
+        for k, v in _flatten_with_paths(state):
+            if k.startswith("err/"):
+                v = v[rank]            # this rank's row only
+            out["state__" + k.replace("/", "__")] = v.numpy()
+        np.savez(os.path.join(task["out"],
+                              f"{layout}_{comp}_{m}_rank{rank}.npz"), **out)
+
+
+def main(argv):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank, world, port, plan = int(argv[1]), int(argv[2]), argv[3], argv[4]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        with open(plan) as f:
+            for task in json.load(f):
+                if task["kind"] == "experiment":
+                    _experiment(task, rank)
+                elif task["kind"] == "wrapper":
+                    _wrapper(task, rank)
+                else:
+                    _steps(task, rank, world)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv)

@@ -41,8 +41,16 @@ def test_make_dataset_bit_equal(name, scale):
 
 @pytest.mark.parametrize("name", ["ppi_real", "reddit_real", "ogbn_arxiv",
                                   "ogbn_products"])
-def test_real_datasets_are_registered_but_not_loadable_yet(name):
-    with pytest.raises(NotImplementedError, match="real-datasets slice"):
+def test_real_datasets_are_registered_but_not_loadable_yet(
+        name, tmp_path, monkeypatch):
+    """Every real name reaches the loader; with no archive in reach (an
+    empty file:// mirror, never the network) it fails with the offline
+    hint after its retries."""
+    monkeypatch.setenv("REPRO_DATASETS_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("REPRO_DATASETS_MIRROR",
+                       (tmp_path / "empty").as_uri())
+    monkeypatch.setenv("REPRO_DOWNLOAD_BACKOFF", "0.001")
+    with pytest.raises(RuntimeError, match="REPRO_DATASETS_MIRROR"):
         generators.make_dataset(name)
 
 

@@ -448,10 +448,20 @@ def test_engine_checkpoint_keys_match_reference_layout(tmp_path):
 # builders and the CLI
 # ----------------------------------------------------------------------
 def test_build_experiment_refuses_later_slices(tmp_path):
+    """execution.data_shards trains data parallel over an initialised
+    process group of exactly that many ranks, and refuses otherwise."""
+    import torch.distributed as dist
     spec = _spec(tmp_path)
     spec.execution.data_shards = 2
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="no torch.distributed process"):
         build_experiment(spec, device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="has 1 rank"):
+            build_experiment(spec, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("sets", [[], ["batch.sparse_adj=true",
