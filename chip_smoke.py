@@ -141,6 +141,38 @@ this script. Phases, each of which must pass (no failure is caught):
    batches of the group); gloo's all-reduce time for the gradient
    buffer of CUDA tensors.
    Nothing here is NCCL across cards: the machine has one.
+14. The reference's other attention-only LMs at their published widths
+   (random weights from seed 0; B 4, 2048 prompt tokens, 32 generated):
+   gemma3-1b, granite-3-2b, internlm2-20b, granite-moe-1b-a400m and
+   paligemma-3b (256 prefix embeddings before the prompt, so T 2304)
+   through `repro_torch.launch.serve.main`; dbrx-132b at 4 of its 40
+   layers through `init_serving` + `make_prefill_step` /
+   `make_decode_step`; hubert-xlarge through `make_encode_step` on 4 ×
+   2048 frame embeddings. Each: exactly `num_layers` flash launches per
+   prefill or encode, all of them the bf16 wgmma kernel, and none in
+   decode; finite logits; first and warm (median of 3) prefill seconds,
+   decode tok/s and step ms, peak device memory; one warm prefill under
+   torch.profiler. At each distinct flash shape the arch serves: kernel
+   ms against its plain version (error within phase 7's bf16 tolerance),
+   its bound (visible pairs only, so a window's masked work is not
+   counted) and one SDPA call timed as a yardstick (with a window: an
+   explicit mask and kv repeated to the q heads). Parity, as in phase
+   8 but bf16 only: the prefill (encode) with the kernel against the
+   same with the plain attention, and prefill(S) against prefill(S-1) +
+   one decode step, both within twice the bf16 floor (plain bf16 vs
+   plain fp32, same params); internlm2-20b and dbrx-132b on a 2-layer
+   copy at full width, whose fp32 copy fits beside the bf16 one. For the
+   MoE archs it also counts the tokens whose top-k experts differ
+   between the kernel and the plain run and the assignments dropped
+   past capacity; their prefill(S) vs prefill(S-1) + decode is held on
+   a copy with capacity C = T (the served prefill drops, decode never
+   does) and the served value is reported. granite-moe-1b-a400m's
+   first MoE layer runs `moe_apply` at the served shape (B 4 x 2048,
+   capacity 640, the served prefill's own input) on the card and on
+   CPU copies, fp32 and bf16, on the card's routing: output within
+   1e-5 (fp32) or twice the bf16 floor, aux within 1e-5, drops
+   present; the router's probabilities against the CPU's, and a top-k
+   that differs only at ties within their measured difference.
 
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
@@ -151,6 +183,7 @@ temporary directory that is removed at the end.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -197,6 +230,23 @@ LM_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
            "--gen", "32", "--seed", "0"]
 LM_TOL = 1e-2       # the reference's bound (tests/test_models.py)
 LM_FP32_TOL = 1e-4  # fp32 logits: summation order over 16 layers
+# phase 14: the reference's other attention-only LMs at their published
+# widths, B 4 x 2048 prompt tokens (after paligemma's 256-patch prefix),
+# 32 generated; dbrx-132b at 4 of its 40 layers (264 GB of bf16 weights
+# do not fit one card); internlm2-20b and dbrx-132b hold parity on a
+# 2-layer copy (their fp32 copy does not fit beside the bf16 one)
+ARCH_NAMES_14 = ("gemma3-1b", "granite-3-2b", "internlm2-20b",
+                 "granite-moe-1b-a400m", "dbrx-132b", "hubert-xlarge",
+                 "paligemma-3b")
+ARCH_CLI = ("gemma3-1b", "granite-3-2b", "internlm2-20b",
+            "granite-moe-1b-a400m", "paligemma-3b")
+ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 2048, 32
+ARCH_DBRX_LAYERS = 4
+ARCH_PARITY_LAYERS = {"internlm2-20b": 2, "dbrx-132b": 2}
+# the arch whose first MoE layer is held on the card against the CPU at
+# the served shape (dbrx-132b's, 16 x 640 slots x 6144 x 10752 per row,
+# is ~1.6e13 FLOP: minutes on the host's cores)
+ARCH_MOE_CPU = "granite-moe-1b-a400m"
 
 
 def _smi() -> str:
@@ -1018,16 +1068,17 @@ def _profile(fn, top_n: int = 10) -> dict:
             device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:top_n]
+    # (name, ms) pairs: names cut to 80 characters can collide
     return dict(wall_ms=wall, device_busy_ms=busy,
                 idle_share=1.0 - busy / wall,
-                top_device_ms={k[:80]: v for k, v in top})
+                top_device_ms=[(k[:80], v) for k, v in top])
 
 
 def _print_profile(tag: str, prof: dict) -> None:
     print(f"[{tag}] {prof['wall_ms']:.3f} ms wall, device busy "
           f"{prof['device_busy_ms']:.3f} ms, idle share "
           f"{prof['idle_share']:.3f}")
-    for name, ms in prof["top_device_ms"].items():
+    for name, ms in prof["top_device_ms"]:
         print(f"[{tag}]   {ms:9.4f} ms  {name}")
 
 
@@ -1036,10 +1087,12 @@ def _rel(got, want) -> float:
 
 
 def _prefill_then_decode(lm, params, cfg, batch, caches, S):
-    """Logits of position S-1 by prefill(S-1) and one decode step."""
-    _, c = lm.prefill(params, cfg, {"tokens": batch["tokens"][:, :S - 1]},
-                      caches)
-    dec, _ = lm.decode_step(params, cfg, batch["tokens"][:, S - 1:], c, S - 1)
+    """Logits of the last prompt position by prefill(S-1) and one decode
+    step at its position (after the prefix, if any)."""
+    short = dict(batch, tokens=batch["tokens"][:, :S - 1])
+    _, c = lm.prefill(params, cfg, short, caches)
+    pos = cfg.num_prefix_embeddings + S - 1
+    dec, _ = lm.decode_step(params, cfg, batch["tokens"][:, S - 1:], c, pos)
     return dec
 
 
@@ -1741,6 +1794,584 @@ def phase_dp(results: dict, work: pathlib.Path) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 14: the reference's other attention-only LMs
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def _patched(module, name: str, wrap):
+    """`module.name` replaced by `wrap(original)` while the body runs;
+    the callers look the name up in its module at each call."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _recorded_routes(store: list):
+    """Record every MoE block's routing, `moe_route`'s (probs, topv,
+    topi), while the body runs."""
+    from repro_torch.models import layers
+
+    def wrap(route):
+        def recording(params, cfg, h):
+            out = route(params, cfg, h)
+            store.append(out)
+            return out
+        return recording
+    return _patched(layers, "moe_route", wrap)
+
+
+def _given_route(route):
+    """Every `moe_route` call returns `route` while the body runs."""
+    from repro_torch.models import layers
+    return _patched(layers, "moe_route", lambda _: lambda p, c, h: route)
+
+
+def _first_moe_input(store: list):
+    """Record the params and input x of a forward's first MoE block."""
+    from repro_torch.models import lm
+
+    def wrap(apply):
+        def recording(params, cfg, x):
+            if not store:
+                store.extend((params, x))
+            return apply(params, cfg, x)
+        return recording
+    return _patched(lm, "moe_apply", wrap)
+
+
+def _capacity_drops(routes: list, cfg, T: int) -> dict:
+    """Assignments past their expert's capacity in a prefill's recorded
+    routes: all of them, and those of each dispatch row's last token,
+    which comes last in its experts' queues and which decode (dropless)
+    never drops. B·T ≤ 512 is one row with C = B·T, as `moe_apply`
+    dispatches it."""
+    import torch
+    from repro_torch.models.layers import moe_capacity
+    dropped = last = max_load = n = 0
+    for _, _, topi in routes:
+        n += topi.numel()
+        if topi.shape[0] * T <= 512:
+            topi = topi.reshape(1, -1, topi.shape[-1])
+            C = topi.shape[1]
+        else:
+            C = moe_capacity(cfg, T)
+        B = topi.shape[0]
+        load = torch.zeros(B, cfg.num_experts, dtype=torch.long,
+                           device=topi.device)
+        load.scatter_add_(1, topi.reshape(B, -1), torch.ones_like(
+            topi.reshape(B, -1)))
+        dropped += int((load - C).clamp_min(0).sum())
+        last += int((load.gather(1, topi[:, -1]) > C).sum())
+        max_load = max(max_load, int(load.max()))
+    return dict(capacity=C, max_load=max_load, dropped=dropped,
+                of_assignments=n, last_token_dropped=last)
+
+
+def _route_changes(a: list, b: list) -> dict:
+    """Tokens whose top-k set differs between two runs' recorded routes:
+    summed over the MoE layers, and distinct (row, token) positions."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} vs {len(b)} MoE routes recorded")
+    changed = [(x[2].sort(-1).values != y[2].sort(-1).values).any(-1)
+               for x, y in zip(a, b)]
+    anywhere = changed[0].clone()
+    for c in changed[1:]:
+        anywhere |= c
+    return dict(token_layers=int(sum(int(c.sum()) for c in changed)),
+                tokens=int(anywhere.sum()),
+                of_tokens=int(anywhere.numel()), layers=len(a))
+
+
+def _moe_card_vs_cpu(cfg, params, x) -> dict:
+    """One MoE layer's `moe_apply` at the served shape — the params and
+    input x of a served prefill's first MoE block — on the card against
+    the same call on CPU copies, in fp32 and bf16, output and aux.
+
+    The CPU call is given the card's routing (`moe_route` returns it),
+    so the sort-based dispatch, the capacity drops into the overflow
+    row, the expert products, the collect and the aux loss are held on
+    the same assignments; the drops are counted and must be there. The
+    router is held on its own: the card's probabilities against the
+    CPU's (fp32 within TOL, bf16 within twice its floor, the CPU's bf16
+    probabilities against its fp32 ones), and the card's top-k may
+    differ from the CPU's only where the CPU's probabilities tie within
+    that measured difference. y: fp32 within TOL["float32"] relative,
+    bf16 within twice its floor (the CPU's bf16 call against its fp32
+    call on the same routing); aux within 1e-5 relative."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models.lm import cast_matmul_weights
+    from repro_torch.nn.tree import tree_map
+
+    def cast(dt, device):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        p = tree_map(lambda a: a.to(device),
+                     cast_matmul_weights(params, c.dtype))
+        return c, p, x.to(device, c.dtype)
+
+    def route_on_cpu(dt):
+        c, p, xd = cast(dt, "cpu")
+        return layers.moe_route(p, c, layers.rmsnorm(p["norm"], xd,
+                                                     c.norm_eps))
+
+    def on_cpu(dt, route):
+        c, p, xd = cast(dt, "cpu")
+        with _given_route(route):
+            y, aux = layers.moe_apply(p, c, xd)
+        return y.float(), float(aux)
+
+    T = x.shape[1]
+    out, card = {}, {}
+    with torch.no_grad():
+        for dt in ("float32", "bfloat16"):
+            c, p, xd = cast(dt, "cuda")
+            routes = []
+            with _recorded_routes(routes):
+                y, aux = layers.moe_apply(p, c, xd)
+            route = tuple(a.cpu() for a in routes[0])
+            card[dt] = (y.float().cpu(), float(aux), route)
+            del p, xd, y
+        own = {dt: route_on_cpu(dt) for dt in card}
+        ref = {dt: on_cpu(dt, card[dt][2]) for dt in card}
+        # the bf16 floor: the CPU's fp32 call on the card's bf16 routing
+        y32_on_bf16_route, _ = on_cpu("float32", card["bfloat16"][2])
+    probs_floor = _rel(own["bfloat16"][0], own["float32"][0])
+    y_floor = _rel(ref["bfloat16"][0], y32_on_bf16_route)
+    for dt, (y, aux, (probs, _, topi)) in card.items():
+        own_probs, own_topv, own_topi = own[dt]
+        y_ref, aux_ref = ref[dt]
+        delta = float((probs - own_probs).abs().max())
+        chosen = own_probs.gather(-1, topi).min(-1).values
+        tie_gap = float((own_topv[..., -1] - chosen).max())
+        row = dict(
+            y_rel=_rel(y, y_ref),
+            y_bound=TOL["float32"] if dt == "float32" else 2 * y_floor,
+            aux=aux, aux_rel=abs(aux - aux_ref) / abs(aux_ref),
+            probs_rel=_rel(probs, own_probs),
+            probs_bound=(TOL["float32"] if dt == "float32"
+                         else 2 * probs_floor),
+            probs_max_abs_delta=delta, topk_tie_gap=tie_gap,
+            topk_changed_tokens=int((topi.sort(-1).values
+                                     != own_topi.sort(-1).values)
+                                    .any(-1).sum()),
+            drops=_capacity_drops([card[dt][2]], cfg, T))
+        if dt == "bfloat16":
+            row.update(y_floor=y_floor, probs_floor=probs_floor)
+        out[dt] = row
+        if not (row["y_rel"] <= row["y_bound"] and row["aux_rel"] <= 1e-5
+                and row["probs_rel"] <= row["probs_bound"]
+                and tie_gap <= delta and row["drops"]["dropped"] > 0):
+            raise AssertionError(f"moe_apply on the card vs the CPU, {dt}: "
+                                 f"{row}")
+    return out
+
+
+def _arch_batch(cfg) -> dict:
+    """The phase's inputs from seed 0: ARCH_BATCH prompts of ARCH_PROMPT
+    tokens (after a VLM's prefix embeddings, as the CLI draws them), or
+    the encoder's frame embeddings."""
+    from repro_torch.configs import make_inputs
+    from repro_torch.launch import serve
+    from repro_torch.models.config import ShapeConfig
+    if cfg.is_encoder:
+        return make_inputs(cfg, ShapeConfig("encode", "prefill", ARCH_PROMPT,
+                                            ARCH_BATCH), 0, "cuda")
+    return serve.make_batch(cfg, ARCH_BATCH, ARCH_PROMPT, 0, "cuda")
+
+
+def _arch_cfg(name: str, layers: int = None):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def _flash_shapes(cfg, T: int) -> list:
+    """The distinct flash calls of one prefill (or encode) of cfg at B 4
+    × T tokens: (Hq, Hkv, T, D, causal, window) and the layers each
+    serves."""
+    shapes = {}
+    for kind in cfg.block_kinds():
+        window = cfg.sliding_window if kind == "local" else None
+        key = (cfg.num_heads, cfg.num_kv_heads, T, cfg.hd, kind != "enc",
+               window)
+        shapes[key] = shapes.get(key, 0) + 1
+    return [dict(Hq=k[0], Hkv=k[1], T=k[2], D=k[3], causal=k[4],
+                 window=k[5], layers=n) for k, n in shapes.items()]
+
+
+def _flash_at(shape: dict, seed: int) -> dict:
+    """The bf16 flash kernel at one served shape (B 4): kernel, plain and
+    SDPA ms, the bound (window-masked pairs excluded) and the kernel's
+    error against its plain version. SDPA is a timed yardstick only: with
+    a window it gets an explicit mask and kv repeated to Hq heads."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (attention_mask,
+                                         multi_head_attention_ref)
+    B, Hq, Hkv, T, D = (ARCH_BATCH, shape["Hq"], shape["Hkv"], shape["T"],
+                        shape["D"])
+    kw = dict(causal=shape["causal"], window=shape["window"])
+    q, k, v = _flash_inputs(B, Hq, Hkv, T, T, D, torch.bfloat16, seed)
+    y = fa.flash_attention(q, k, v, **kw)
+    ref = multi_head_attention_ref(q, k, v, **kw)
+    err = float((y.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    launch_kw = dict(kw, softcap=None, scale=1.0 / D ** 0.5)
+    row = dict(shape, B=B, dtype="bfloat16", max_abs_err=err,
+               tol=TOL["bfloat16"] * scale)
+    row["ms"] = _time_ms(lambda: fa._launch(q, k, v, **launch_kw), 10)
+    row["plain_ms"] = _time_ms(
+        lambda: multi_head_attention_ref(q, k, v, **kw), 3)
+    mask = attention_mask(T, T, kw["causal"], kw["window"], "cuda")
+    row["visible_pairs"] = int(mask.sum())
+    row["flops"] = 4.0 * B * Hq * D * row["visible_pairs"]
+    row["bound_ms"], row["bound_by"] = _bound(row["flops"], (q, k, v, y),
+                                              torch.bfloat16)
+    if kw["window"] is None:
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=kw["causal"], enable_gqa=True)
+    else:
+        kr = k.repeat_interleave(Hq // Hkv, dim=1)
+        vr = v.repeat_interleave(Hq // Hkv, dim=1)
+
+        def library():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+    row["library_max_abs_err_vs_plain"] = float(
+        (library().float() - ref.float()).abs().max())
+    row["library_ms"] = _time_ms(library, 10)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    if not err <= row["tol"]:
+        raise AssertionError(f"flash at a served shape disagrees with its "
+                             f"plain version: {row}")
+    return row
+
+
+def _arch_parity(name: str, cfg, batch, launches_per_call: int) -> dict:
+    """Kernel vs plain attention, prefill(S) vs prefill(S-1) + decode (or,
+    for the encoder, kernel vs plain encode), and the bf16 floor (plain
+    bf16 vs plain fp32, the same params) on `cfg`."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import multi_head_attention_ref as plain
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_tree
+
+    encoder = cfg.is_encoder
+    S = ARCH_PROMPT
+    max_seq = cfg.num_prefix_embeddings + S + ARCH_GEN
+    routes_k, routes_p, moe_in = [], [], []
+    with torch.no_grad():
+        params = serve.init_params(cfg, 0, "cuda")
+        caches = None if encoder else init_tree(
+            lm.spec_caches(cfg, ARCH_BATCH, max_seq), torch.Generator(),
+            "cuda")
+        before = fa.LAUNCHES_SM90
+        with _recorded_routes(routes_k), _first_moe_input(moe_in):
+            kern = lm.encode(params, cfg, batch) if encoder else \
+                lm.prefill(params, cfg, batch, caches)[0]
+        if fa.LAUNCHES_SM90 - before != launches_per_call:
+            raise AssertionError(f"{name} parity copy: "
+                                 f"{fa.LAUNCHES_SM90 - before} flash "
+                                 f"launches, expected {launches_per_call}")
+        with _recorded_routes(routes_p):
+            pl = lm.encode(params, cfg, batch, attn_fn=plain) if encoder \
+                else lm.prefill(params, cfg, batch, caches, attn_fn=plain)[0]
+        dec = None if encoder else _prefill_then_decode(
+            lm, params, cfg, batch, caches, S)
+        if cfg.num_experts:
+            # the served prefill drops assignments past an expert's
+            # capacity and decode drops none, so prefill(S) and
+            # prefill(S-1) + decode differ by design wherever the last
+            # token lost one; they are held equal on a copy whose
+            # capacity (C = T) no expert can overflow
+            dropless = dataclasses.replace(
+                cfg, moe_capacity_factor=cfg.num_experts
+                / cfg.experts_per_token)
+            full_d = lm.prefill(params, dropless, batch, caches)[0]
+            dec_d = _prefill_then_decode(lm, params, dropless, batch,
+                                         caches, S)
+        moe_check = _moe_card_vs_cpu(cfg, *moe_in) \
+            if name == ARCH_MOE_CPU else None
+        del params, caches, moe_in
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params32 = init_tree(lm.spec_params(cfg32), torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        if encoder:
+            pl32 = lm.encode(params32, cfg32, batch, attn_fn=plain)
+        else:
+            caches32 = init_tree(lm.spec_caches(cfg32, ARCH_BATCH, max_seq),
+                                 torch.Generator(), "cuda")
+            pl32 = lm.prefill(params32, cfg32, batch, caches32,
+                              attn_fn=plain)[0]
+            del caches32
+        del params32
+    floor = _rel(pl, pl32)
+    out = dict(layers=cfg.num_layers, bf16_kernel_vs_plain=_rel(kern, pl),
+               bf16_plain_vs_fp32=floor, bf16_kernel_vs_fp32=_rel(kern, pl32),
+               bf16_bound=2 * floor,
+               finite=bool(torch.isfinite(kern).all()))
+    if not encoder:
+        out["bf16_prefill_vs_decode"] = _rel(dec, kern)
+    if cfg.num_experts:
+        out["route_changes_kernel_vs_plain"] = _route_changes(routes_k,
+                                                              routes_p)
+        out["capacity_drops"] = _capacity_drops(
+            routes_k, cfg, batch["tokens"].shape[1])
+        out["bf16_prefill_vs_decode_served"] = out.pop(
+            "bf16_prefill_vs_decode")
+        out["bf16_prefill_vs_decode"] = _rel(dec_d, full_d)
+    if moe_check is not None:
+        out["moe_card_vs_cpu"] = moe_check
+    return out
+
+
+def _serve_arch(name: str) -> dict:
+    """The main path of one arch, its launches counted from 0: the CLI
+    (`serve.main`), dbrx at ARCH_DBRX_LAYERS layers through the steps,
+    hubert through `make_encode_step`."""
+    import torch
+    from repro_torch.dist.steps import (make_decode_step, make_encode_step,
+                                        make_prefill_step)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    start = _reset_peak_memory()
+    if name in ARCH_CLI:
+        fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+        out = serve.main(["--arch", name, "--batch", str(ARCH_BATCH),
+                          "--prompt-len", str(ARCH_PROMPT), "--gen",
+                          str(ARCH_GEN), "--seed", "0"])
+        counts = (fa.LAUNCHES, fa.LAUNCHES_SM90)
+        res = dict(first_prefill_s=out["prefill_s"],
+                   decode_tok_s=out["decode_tok_s"],
+                   decode_steps=out["decode_steps"],
+                   launches=out["launches"],
+                   finite=bool(torch.isfinite(out["prefill_logits"]).all()
+                               and torch.isfinite(out["last_logits"]).all()))
+    elif name == "dbrx-132b":
+        cfg = _arch_cfg(name, ARCH_DBRX_LAYERS)
+        max_seq = ARCH_PROMPT + ARCH_GEN
+        params, caches = serve.init_serving(cfg, ARCH_BATCH, max_seq, 0,
+                                            "cuda")
+        batch = _arch_batch(cfg)
+        prefill_fn, decode_fn = make_prefill_step(cfg), make_decode_step(cfg)
+        with torch.no_grad():
+            fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill_fn(params, batch, caches)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            n_prefill = fa.LAUNCHES
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            t0 = time.perf_counter()
+            for i in range(ARCH_GEN - 1):
+                tok, last, caches = decode_fn(params, tok, caches,
+                                              ARCH_PROMPT + i)
+            torch.cuda.synchronize()
+            t_decode = time.perf_counter() - t0
+            counts = (fa.LAUNCHES, fa.LAUNCHES_SM90)
+        res = dict(first_prefill_s=t_prefill,
+                   decode_tok_s=ARCH_BATCH * (ARCH_GEN - 1) / t_decode,
+                   decode_steps=ARCH_GEN - 1,
+                   launches={"prefill": n_prefill,
+                             "decode": counts[0] - n_prefill},
+                   finite=bool(torch.isfinite(logits).all()
+                               and torch.isfinite(last).all()))
+        del params, caches
+    else:                                           # hubert-xlarge
+        cfg = _arch_cfg(name)
+        params = serve.init_params(cfg, 0, "cuda")
+        batch = _arch_batch(cfg)
+        encode_fn = make_encode_step(cfg)
+        with torch.no_grad():
+            fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = encode_fn(params, batch)
+            torch.cuda.synchronize()
+            t_encode = time.perf_counter() - t0
+            counts = (fa.LAUNCHES, fa.LAUNCHES_SM90)
+        res = dict(first_prefill_s=t_encode,
+                   launches={"encode": counts[0]},
+                   logits_shape=list(logits.shape),
+                   finite=bool(torch.isfinite(logits).all()))
+        del params
+    res.update(launches_total=counts[0], launches_sm90=counts[1],
+               peak=_peak_memory(start))
+    return res
+
+
+def _warm_arch(name: str, cfg) -> dict:
+    """Warm prefill (or encode) seconds, decode-step ms and one warm
+    prefill under torch.profiler, on freshly drawn params."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    batch = _arch_batch(cfg)
+    with torch.no_grad():
+        if cfg.is_encoder:
+            params = serve.init_params(cfg, 0, "cuda")
+
+            def forward():
+                return lm.encode(params, cfg, batch)
+        else:
+            max_seq = cfg.num_prefix_embeddings + ARCH_PROMPT + ARCH_GEN
+            params, caches = serve.init_serving(cfg, ARCH_BATCH, max_seq, 0,
+                                                "cuda")
+
+            def forward():
+                return lm.prefill(params, cfg, batch, caches)[0]
+        warm = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = forward()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        res = dict(prefill_warm_s=warm,
+                   prefill_warm_median_s=float(np.median(warm)))
+        res["profile"] = _profile(forward, top_n=6)
+        if not cfg.is_encoder:
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            pos = cfg.num_prefix_embeddings + ARCH_PROMPT
+            steps = []
+            for i in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches = lm.decode_step(params, cfg, tok, caches, pos + i)
+                tok = lg.argmax(-1).to(torch.int32)[:, None]
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+            res["decode_step_median_ms"] = float(np.median(steps)) * 1e3
+    return res
+
+
+def phase_lm_archs(results: dict, smi: str) -> dict:
+    """Phase 14: serve every other attention-only LM of the reference at
+    its published width; returns the flash launches per arch and the
+    kernel rows of the new flash shapes."""
+    import torch
+
+    archs, shape_rows, launches = {}, {}, {}
+    for name in ARCH_NAMES_14:
+        t_arch = time.perf_counter()
+        cfg = _arch_cfg(name, ARCH_DBRX_LAYERS if name == "dbrx-132b"
+                        else None)
+        L = cfg.num_layers
+        # --- the main path: the launch counts start at 0 inside -------
+        res = _serve_arch(name)
+        # -----------------------------------------------------------------
+        expect = {"encode": L} if cfg.is_encoder else {"prefill": L,
+                                                       "decode": 0}
+        print(f"[lm-archs] {name} ({L} layers{' of 40' if name == 'dbrx-132b' else ''}"
+              f", d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+              f"D {cfg.hd}): flash launches {res['launches']} (expected "
+              f"{expect}), of them the bf16 wgmma kernel "
+              f"{res['launches_sm90']}; logits finite: {res['finite']}; "
+              f"first {'encode' if cfg.is_encoder else 'prefill'} "
+              f"{res['first_prefill_s']:.4f} s"
+              + ("" if cfg.is_encoder else
+                 f"; decode {res['decode_tok_s']:.1f} tok/s over "
+                 f"{res['decode_steps']} steps")
+              + f"; peak {res['peak']['peak_gib']:.2f} GiB  ({smi})")
+        if res["launches"] != expect or res["launches_total"] != L \
+                or res["launches_sm90"] != L or not res["finite"]:
+            raise AssertionError(f"{name} serving: {res}")
+        launches[name] = res["launches"]
+        res.update(_warm_arch(name, cfg))
+        prof = res["profile"]
+        print(f"[lm-archs] {name}: warm {'encode' if cfg.is_encoder else 'prefill'} "
+              f"{res['prefill_warm_median_s']:.4f} s (median of 3)"
+              + ("" if cfg.is_encoder else
+                 f", decode step {res['decode_step_median_ms']:.3f} ms "
+                 f"(median of 5)") + f"  ({smi})")
+        _print_profile(f"lm-archs {name} profile", prof)
+        for shape in _flash_shapes(cfg, cfg.num_prefix_embeddings
+                                   + ARCH_PROMPT):
+            key = tuple(shape[k] for k in ("Hq", "Hkv", "T", "D", "causal",
+                                           "window"))
+            if key not in shape_rows:
+                row = _flash_at(shape, seed=len(shape_rows))
+                row["archs"] = {}
+                shape_rows[key] = row
+                print(f"[lm-archs] flash B {ARCH_BATCH} {shape['Hq']}/"
+                      f"{shape['Hkv']} T {shape['T']} D {shape['D']} "
+                      f"{'causal' if shape['causal'] else 'non-causal'}"
+                      f"{'' if shape['window'] is None else ' window ' + str(shape['window'])}: "
+                      f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']}, {100 * row['bound_share']:.1f}%), "
+                      f"plain {row['plain_ms']:.4f} ms, sdpa "
+                      f"{row['library_ms']:.4f} ms (kernel / sdpa = "
+                      f"{row['vs_library']:.2f}); max|Δ| vs plain "
+                      f"{row['max_abs_err']:.3e} (tol {row['tol']:.3e})  ({smi})")
+            shape_rows[key]["archs"][name] = shape["layers"]
+        pcfg = _arch_cfg(name, ARCH_PARITY_LAYERS.get(
+            name, cfg.num_layers))
+        par = _arch_parity(name, pcfg, _arch_batch(pcfg), pcfg.num_layers)
+        res["parity"] = par
+        msg = (f"[lm-archs] {name} parity ({par['layers']} layers, full "
+               f"width): bf16 kernel vs plain rel "
+               f"{par['bf16_kernel_vs_plain']:.3e}")
+        if "bf16_prefill_vs_decode" in par:
+            msg += (f", prefill(S) vs prefill(S-1) + decode rel "
+                    f"{par['bf16_prefill_vs_decode']:.3e}")
+        msg += (f" (bound 2 x the bf16 floor = {par['bf16_bound']:.3e}; "
+                f"floor = plain bf16 vs plain fp32 "
+                f"{par['bf16_plain_vs_fp32']:.3e}; kernel bf16 vs plain "
+                f"fp32 {par['bf16_kernel_vs_fp32']:.3e})  ({smi})")
+        if "route_changes_kernel_vs_plain" in par:
+            rc = par["route_changes_kernel_vs_plain"]
+            dr = par["capacity_drops"]
+            msg += (f"; tokens whose top-{cfg.experts_per_token} changed, "
+                    f"kernel vs plain: {rc['tokens']} of {rc['of_tokens']} "
+                    f"({rc['token_layers']} token-layers over "
+                    f"{rc['layers']} MoE layers); capacity {dr['capacity']}"
+                    f" per expert and row, largest load {dr['max_load']}, "
+                    f"{dr['dropped']} of {dr['of_assignments']} assignments "
+                    f"dropped, {dr['last_token_dropped']} of them the last "
+                    f"token's; the served prefill(S) vs prefill(S-1) + "
+                    f"decode rel {par['bf16_prefill_vs_decode_served']:.3e} "
+                    f"(drops included; the checked one above has capacity "
+                    f"C = T)")
+        print(msg)
+        for dt, mc in par.get("moe_card_vs_cpu", {}).items():
+            dr = mc["drops"]
+            print(f"[lm-archs] {name} layer-0 moe_apply at B {ARCH_BATCH} x "
+                  f"{ARCH_PROMPT}, {dt}, card vs CPU on the card's routing: "
+                  f"y rel {mc['y_rel']:.3e} (bound {mc['y_bound']:.3e}), aux "
+                  f"{mc['aux']:.6f} rel {mc['aux_rel']:.3e} (bound 1e-5), "
+                  f"{dr['dropped']} of {dr['of_assignments']} assignments "
+                  f"dropped (capacity {dr['capacity']}); router probs rel "
+                  f"{mc['probs_rel']:.3e} (bound {mc['probs_bound']:.3e}), "
+                  f"{mc['topk_changed_tokens']} tokens with another top-"
+                  f"{cfg.experts_per_token} than the CPU's (largest tie gap "
+                  f"{mc['topk_tie_gap']:.3e} <= max|dprobs| "
+                  f"{mc['probs_max_abs_delta']:.3e})  ({smi})")
+        if not (par["finite"] and par["bf16_kernel_vs_plain"] <= par["bf16_bound"]
+                and par.get("bf16_prefill_vs_decode", 0.0) <= par["bf16_bound"]):
+            raise AssertionError(f"{name} parity: {par}")
+        res["seconds"] = time.perf_counter() - t_arch
+        print(f"[lm-archs] {name}: {res['seconds']:.1f} s in this phase  "
+              f"({smi})")
+        archs[name] = res
+        torch.cuda.empty_cache()
+    results["lm_archs"] = dict(gpu=smi, archs=archs,
+                               flash_shapes=list(shape_rows.values()))
+    return dict(launches=launches, flash_shapes=list(shape_rows.values()))
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":
@@ -1814,6 +2445,7 @@ def main() -> int:
         phase_baselines(results)
         real_launches = phase_real(results, work)
         dp_launches = phase_dp(results, work)
+        archs = phase_lm_archs(results, smi)
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
@@ -1877,12 +2509,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "fp32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": lm_launches,
-        "launches_by_path": results["lm_serve"]["launches"],
+        "launches": lm_launches + sum(sum(n.values()) for n in
+                                      archs["launches"].values()),
+        "launches_by_path": {"llama3.2-1b": results["lm_serve"]["launches"],
+                             **archs["launches"]},
         **numbers(flash_row),
         "tflop_s": flash_row["tflop_s"],
         "shape": {k: flash_row[k] for k in ("B", "Hq", "Hkv", "Tq", "Tk",
                                             "D", "dtype", "mask")},
+        "served_shapes": [dict(numbers(row), **{k: row[k] for k in (
+            "B", "Hq", "Hkv", "T", "D", "causal", "window", "archs",
+            "vs_library", "bound_share")}) for row in archs["flash_shapes"]],
     }]
     results["kernels"] = kernels
     out = ROOT / "chiprun_out"

@@ -1,7 +1,8 @@
 """Step builders — the port of `repro.dist.steps`.
 
-LM serving: `make_prefill_step` / `make_decode_step` are plain closures
-over the architecture config (the port runs a model on one card).
+LM serving: `make_prefill_step` / `make_decode_step` (decoders) and
+`make_encode_step` (encoder-only archs) are plain closures over the
+architecture config (the port runs a model on one card).
 
 GCN data parallel: `make_gcn_train_step` runs the paper's training step
 on every rank of a `torch.distributed` process group, where the
@@ -29,7 +30,7 @@ from repro_torch.dist.compression import (DEFAULT_GROUP_SIZE,
 from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import decode_step, prefill
+from repro_torch.models.lm import decode_step, encode, prefill
 from repro_torch.nn.optim import Optimizer, apply_updates
 from repro_torch.nn.tree import Tree, tree_leaves, tree_map
 from repro_torch.runtime import faults
@@ -52,6 +53,13 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
         logits, caches = decode_step(params, cfg, tokens, caches, pos)
         nxt = logits.argmax(-1).to(torch.int32)[:, None]
         return nxt, logits, caches
+    return step
+
+
+def make_encode_step(cfg: ArchConfig) -> Callable:
+    """Encoder-only forward: (params, batch) -> frame logits (B, S, V)."""
+    def step(params, batch):
+        return encode(params, cfg, batch)
     return step
 
 

@@ -11,11 +11,19 @@ over the transformer stack (repro_torch.models.lm) — the counterpart of
 Same flags as the reference, with `--device` (default "cuda"; a host
 without a GPU must pass `--device cpu`) in place of `--mesh`: the port
 serves on one card. Weights are random, drawn from `--seed` on the
-device (the reference does the same); the matmul weights are cast to
-the compute dtype once after init (`lm.cast_matmul_weights`, identical
-values), the norm scales stay fp32. Prompts are drawn with numpy from
-`--seed`. Prefill runs the flash-attention kernel in every layer (on a
-CUDA device); decode attends over the KV cache in plain PyTorch.
+device (the reference does the same); each matmul weight is cast to the
+compute dtype as soon as it is drawn (identical values to a cast after
+init; a 20 B model never holds its fp32 tree), the norm scales stay
+fp32. Prompts, and a VLM's prefix embeddings after them, are drawn with
+numpy from `--seed`, as the reference draws them. The KV caches hold
+the whole context (prefix, prompt and generated tokens) and decode
+step i runs at position npfx + prompt_len + i. Prefill runs the
+flash-attention kernel in every layer (on a CUDA device); decode
+attends over the KV cache in plain PyTorch.
+
+The reference's CLI sizes its caches to prompt_len + gen without the
+prefix, so its prefill raises for a VLM whenever gen < npfx (ROADMAP C,
+R4); the port sizes them to the context.
 
 Prints the prefill time, the decode rate and the first row's tokens, as
 the reference does. `main(argv)` returns them with the launch counts of
@@ -35,33 +43,57 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.steps import make_decode_step, make_prefill_step
 from repro_torch.kernels import flash_attention
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import (cast_matmul_weights, spec_caches,
+from repro_torch.models.lm import (cast_matmul_leaf, spec_caches,
                                    spec_params)
 from repro_torch.models.spec import init_tree
 
 
-def init_serving(cfg: ArchConfig, batch: int, max_seq: int, seed: int,
-                 device) -> tuple:
-    """(params, caches) on `device`: params from `seed` with the matmul
-    weights cast to the compute dtype, empty caches for `batch` rows of
-    `max_seq` positions."""
+def _init_cast(specs, gen: torch.Generator, dev: torch.device,
+               dtype: torch.dtype, key=None):
+    """`init_tree(specs, gen, dev)` leaf by leaf in the same order (the
+    same values), each matmul weight cast to `dtype` as soon as it is
+    drawn: the fp32 copy of one leaf at a time is alive, never the whole
+    fp32 tree beside its cast."""
+    if isinstance(specs, dict):
+        return {k: _init_cast(specs[k], gen, dev, dtype, k)
+                for k in sorted(specs)}
+    leaf = init_tree(specs, gen, dev)
+    return cast_matmul_leaf(key, leaf, dtype)
+
+
+def init_params(cfg: ArchConfig, seed: int, device) -> Dict:
+    """Params on `device` from `seed`, the matmul weights in the compute
+    dtype (`lm.cast_matmul_weights` of the fp32 init, value for
+    value)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = cast_matmul_weights(init_tree(spec_params(cfg), gen, dev),
-                                 cfg.dtype)
-    caches = init_tree(spec_caches(cfg, batch, max_seq), gen, dev)
-    return params, caches
+    return _init_cast(spec_params(cfg), gen, dev, cfg.dtype)
+
+
+def init_serving(cfg: ArchConfig, batch: int, max_seq: int, seed: int,
+                 device) -> tuple:
+    """(params, caches) on `device`: `init_params`, and empty caches for
+    `batch` rows of `max_seq` positions."""
+    dev = resolve_device(device)
+    caches = init_tree(spec_caches(cfg, batch, max_seq), torch.Generator(),
+                       dev)
+    return init_params(cfg, seed, dev), caches
 
 
 def make_batch(cfg: ArchConfig, batch: int, prompt_len: int, seed: int,
                device) -> Dict[str, torch.Tensor]:
-    """Random prompts from numpy's generator seeded with `seed`, as the
-    reference draws them (the VLM prefix embeddings come with
-    ROADMAP A7.4)."""
+    """Random prompts from numpy's generator seeded with `seed`, then,
+    for a VLM, its prefix embeddings (B, npfx, d) fp32 from the same
+    generator, as the reference draws them."""
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len),
                            dtype=np.int32)
-    return {"tokens": torch.from_numpy(prompts).to(device)}
+    out = {"tokens": torch.from_numpy(prompts).to(device)}
+    if cfg.num_prefix_embeddings:
+        pfx = rng.normal(size=(batch, cfg.num_prefix_embeddings,
+                               cfg.d_model)).astype(np.float32)
+        out["prefix_embeddings"] = torch.from_numpy(pfx).to(device)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -93,7 +125,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         raise SystemExit(f"{cfg.name} is encoder-only — no decode serving")
     if args.gen < 1:
         raise SystemExit("--gen must be at least 1")
-    max_seq = args.prompt_len + args.gen
+    npfx = cfg.num_prefix_embeddings
+    max_seq = npfx + args.prompt_len + args.gen
     params, caches = init_serving(cfg, args.batch, max_seq, args.seed,
                                   device)
     batch = make_batch(cfg, args.batch, args.prompt_len, args.seed, device)
@@ -115,7 +148,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         t0 = time.perf_counter()
         for i in range(args.gen - 1):
             tok, logits, caches = decode_fn(params, tok, caches,
-                                            args.prompt_len + i)
+                                            args.prompt_len + npfx + i)
             generated.append(tok)
         _sync(device)
         t_decode = time.perf_counter() - t0

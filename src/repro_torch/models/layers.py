@@ -1,8 +1,8 @@
 """Transformer building blocks — the port of `repro.models.layers`:
 norms, RoPE, GQA attention with its KV caches (linear, or a ring of
-`sliding_window` slots for 'local' layers) and the dense MLP
-(SwiGLU / GeGLU). The MoE FFN (`spec_moe`, `moe_apply`) comes with the
-MoE slice (ROADMAP A7.3).
+`sliding_window` slots for 'local' layers), the dense MLP (SwiGLU /
+GeGLU) and the MoE FFN (top-k routing, sort-based dispatch with
+capacity, the Switch aux loss).
 
 `spec_*` functions return TensorSpec trees (models/spec.py); the
 matching `*_apply` functions take materialized params. Weights are cast
@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ArchConfig
@@ -268,3 +269,102 @@ def mlp_apply(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.post_norm:
         out = rmsnorm(params["post"], out, cfg.norm_eps)
     return out
+
+
+# ----------------------------------------------------------------------
+# MoE FFN: top-k routing, sort-based dispatch with capacity (static
+# shapes, GShard/Switch style)
+# ----------------------------------------------------------------------
+def spec_moe(cfg: ArchConfig) -> Dict[str, Any]:
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    return {
+        "norm": spec_rmsnorm(d),
+        "router": TensorSpec((d, e), ("embed", None), init="normal",
+                             scale=d ** -0.5),
+        "wg": TensorSpec((e, d, f), ("experts", "embed", "moe_ffn"),
+                         init="normal", scale=d ** -0.5),
+        "wu": TensorSpec((e, d, f), ("experts", "embed", "moe_ffn"),
+                         init="normal", scale=d ** -0.5),
+        "wd": TensorSpec((e, f, d), ("experts", "moe_ffn", "embed"),
+                         init="normal", scale=f ** -0.5),
+    }
+
+
+def moe_capacity(cfg: ArchConfig, tokens: int) -> int:
+    """Slots per expert for `tokens` routed tokens: the capacity factor's
+    share, rounded up to a multiple of 8, at least 8."""
+    c = int(tokens * cfg.experts_per_token * cfg.moe_capacity_factor
+            / cfg.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_route(params, cfg: ArchConfig, h: torch.Tensor):
+    """Router of the normed tokens h (B, T, d): (probs (B, T, E) fp32,
+    topv, topi (B, T, k)). Logits are computed in h's dtype, then an
+    fp32 softmax; the top k are taken by a stable descending sort, so
+    tied probabilities (common from bf16 logits) pick the lower expert
+    first, as `jax.lax.top_k` does."""
+    logits = (h @ params["router"].to(h.dtype)).float()
+    probs = torch.softmax(logits, -1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    return probs, vals[..., :k], idx[..., :k]
+
+
+def moe_apply(params, cfg: ArchConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, d) -> (y (B, T, d), the Switch load-balancing aux loss).
+
+    The reference's row-local dispatch: each batch row sorts its T·k
+    assignments by expert (stable) and writes them into its own
+    (E, C, d) buffer; an assignment past its expert's C slots goes to an
+    overflow row E and is dropped. Small batches (B·T ≤ 512, decode)
+    flatten to one row with C = B·T, which no expert can overflow, so
+    decode is exact. The expert products are batched matmuls over the
+    buffer; each token's outputs are collected from its k slots and
+    summed with the renormalised top-k weights.
+    """
+    B, T, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    h = rmsnorm(params["norm"], x, cfg.norm_eps)
+    probs, topv, topi = moe_route(params, cfg, h)
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    if B * T <= 512:
+        Bd, Td, C = 1, B * T, B * T
+    else:
+        Bd, Td, C = B, T, moe_capacity(cfg, T)
+    h = h.reshape(Bd, Td, d)
+
+    flat_e = topi.reshape(Bd, Td * k)     # token-major assignment order
+    flat_w = topv.reshape(Bd, Td * k)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    e_s = flat_e.gather(-1, order)
+    experts = torch.arange(E, device=x.device).expand(Bd, E).contiguous()
+    starts = torch.searchsorted(e_s, experts)               # (Bd, E)
+    pos_in_e = torch.arange(Td * k, device=x.device) \
+        - starts.gather(-1, e_s)
+    keep_s = pos_in_e < C
+    dst_e_s = torch.where(keep_s, e_s, E)                    # overflow row
+    dst_c_s = torch.where(keep_s, pos_in_e, 0)
+    # back to token-major order: position order[j] takes sorted entry j
+    de_o = torch.empty_like(dst_e_s).scatter_(-1, order, dst_e_s)
+    dc_o = torch.empty_like(dst_c_s).scatter_(-1, order, dst_c_s)
+
+    rows = torch.arange(Bd, device=x.device)[:, None]
+    buf = h.new_zeros((Bd, E + 1, C, d))
+    buf[rows, de_o, dc_o] = h.repeat_interleave(k, dim=1)
+    buf = buf[:, :E]
+
+    act = _act(cfg.act)
+    g = act(torch.einsum("becd,edf->becf", buf, params["wg"].to(h.dtype)))
+    u = torch.einsum("becd,edf->becf", buf, params["wu"].to(h.dtype))
+    out = torch.einsum("becf,efd->becd", g * u, params["wd"].to(h.dtype))
+
+    gathered = out[rows, de_o.clamp(max=E - 1), dc_o]       # (Bd, T·k, d)
+    w_keep = (flat_w * (de_o < E)).to(gathered.dtype)
+    y = (gathered * w_keep[..., None]).reshape(B, T, k, d).sum(2)
+
+    frac = F.one_hot(topi, E).float().mean((0, 1, 2))
+    aux = E * (frac * probs.mean((0, 1))).sum()
+    return y, aux

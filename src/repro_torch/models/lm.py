@@ -1,5 +1,5 @@
 """Unified pattern-stacked language model — the serving half of
-`repro.models.lm`.
+`repro.models.lm` (everything but the training loss).
 
 Layer stack = `num_groups` × `pattern` (params stacked on a leading
 group axis) + unstacked `tail` blocks. The reference scans the groups
@@ -12,17 +12,27 @@ Entry points:
   prefill                   — run the prompt, write caches, last-position
                               logits
   decode_step               — one token in, caches updated
-  cast_matmul_weights       — the matmul weights cast once to the
-                              compute dtype (identical values to the
-                              per-use cast; the norm scales stay fp32)
+  encode                    — encoder-only forward (hubert): frame
+                              logits (B, S, V)
+
+`cast_matmul_leaf` is the rule for which params are cast once to the
+compute dtype (identical values to the per-use cast; the norm scales
+stay fp32): `launch.serve.init_params` applies it to each leaf as it is
+drawn, `cast_matmul_weights` to a whole fp32 tree (the oracle the tests
+hold init_params to).
 
 Logits are fp32, computed from the compute-dtype operands (the
 reference's `preferred_element_type=float32`): the rounded operands are
 upcast, which is exact, and multiplied in fp32.
 
-Block kinds: `attn`, `local` and `enc`. The MoE FFN, the SSM mixers and
-the Zamba2 shared blocks raise NotImplementedError naming their ROADMAP
-item; `lm_loss` and `encode` come with the LM training slice.
+Batches carry "tokens" (B, S) int, or "embeddings" (B, S, d) for the
+stub-frontend encoder (hubert), or "prefix_embeddings" (B, npfx, d) and
+"tokens" for the VLM (paligemma), whose prefix comes first.
+
+Block kinds: `attn`, `local`, `enc` and `moe` (attention + the MoE
+FFN). The SSM mixers and the Zamba2 shared blocks raise
+NotImplementedError naming their ROADMAP item; `lm_loss` comes with the
+LM training slice.
 """
 from __future__ import annotations
 
@@ -33,24 +43,26 @@ import torch
 from repro_torch.kernels.ops import multi_head_attention
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (attention_apply, attn_cache_spec,
-                                       mlp_apply, rmsnorm, spec_attention,
-                                       spec_mlp, spec_rmsnorm)
+                                       mlp_apply, moe_apply, rmsnorm,
+                                       spec_attention, spec_mlp, spec_moe,
+                                       spec_rmsnorm)
 from repro_torch.models.spec import TensorSpec, stack_specs
 from repro_torch.nn.tree import tree_map
 
 Tree = Any
 
 _ATTN_MLP = ("attn", "local", "enc")
+_ATTN_KINDS = _ATTN_MLP + ("moe",)
 _NOT_PORTED = {
-    "moe": "the MoE FFN, ROADMAP A7.3",
-    "mamba2": "the SSM blocks of models/gla.py, ROADMAP A7.5",
-    "mlstm": "the SSM blocks of models/gla.py, ROADMAP A7.5",
-    "slstm": "the SSM blocks of models/gla.py, ROADMAP A7.5",
-    "shared_attn": "the Zamba2 shared blocks, ROADMAP A7.5",
+    "mamba2": "the SSM blocks of models/gla.py, ROADMAP A6.5",
+    "mlstm": "the SSM blocks of models/gla.py, ROADMAP A6.5",
+    "slstm": "the SSM blocks of models/gla.py, ROADMAP A6.5",
+    "shared_attn": "the Zamba2 shared blocks, ROADMAP A6.5",
 }
 # params whose every use is a matmul operand cast to the compute dtype
+# (the MoE's stacked expert weights share the dense MLP's names)
 _MATMUL_KEYS = frozenset(("embed", "lm_head", "wq", "wk", "wv", "wo",
-                          "wg", "wu", "wd"))
+                          "wg", "wu", "wd", "router"))
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -64,6 +76,8 @@ def _not_ported(what: str) -> NotImplementedError:
 def spec_block(cfg: ArchConfig, kind: str) -> Dict:
     if kind in _ATTN_MLP:
         return {"attn": spec_attention(cfg), "mlp": spec_mlp(cfg)}
+    if kind == "moe":
+        return {"attn": spec_attention(cfg), "moe": spec_moe(cfg)}
     if kind in _NOT_PORTED:
         raise _not_ported(kind)
     raise ValueError(kind)
@@ -71,7 +85,7 @@ def spec_block(cfg: ArchConfig, kind: str) -> Dict:
 
 def cache_spec_block(cfg: ArchConfig, kind: str, batch: int,
                      max_seq: int) -> Dict:
-    if kind in _ATTN_MLP:
+    if kind in _ATTN_KINDS:
         return {"attn": attn_cache_spec(cfg, batch, max_seq, kind)}
     if kind in _NOT_PORTED:
         raise _not_ported(kind)
@@ -115,15 +129,22 @@ def spec_caches(cfg: ArchConfig, batch: int, max_seq: int) -> Dict:
     return caches
 
 
+def cast_matmul_leaf(key: str, leaf: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The param leaf under `key`, cast to `dtype` if it is a matmul
+    weight (embeddings, head, attention, MLP and MoE projections, the
+    router), so a step reads it in the compute dtype instead of casting
+    an fp32 weight at every use; any other leaf unchanged."""
+    return leaf.to(dtype) if key in _MATMUL_KEYS else leaf
+
+
 def cast_matmul_weights(params: Dict, dtype: torch.dtype) -> Dict:
-    """`params` with every matmul weight (embeddings, head, attention
-    and MLP projections) cast to `dtype` once, so a step reads them in
-    the compute dtype instead of casting fp32 weights at every use. The
-    values the model sees are identical; norm scales stay fp32."""
+    """`cast_matmul_leaf` over every leaf of `params`. The values the
+    model sees are identical; norm scales stay fp32."""
     def walk(tree, key=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
-        return tree.to(dtype) if key in _MATMUL_KEYS else tree
+        return cast_matmul_leaf(key, tree, dtype)
     return walk(params)
 
 
@@ -133,14 +154,19 @@ def cast_matmul_weights(params: Dict, dtype: torch.dtype) -> Dict:
 def _apply_block(params, cfg: ArchConfig, kind: str, h: torch.Tensor, *,
                  positions, attn_fn, cache, decode_pos
                  ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    if kind not in _ATTN_MLP:
+    """One block; a MoE block's aux loss is dropped (serving reads no
+    loss)."""
+    if kind not in _ATTN_KINDS:
         raise _not_ported(kind) if kind in _NOT_PORTED else ValueError(kind)
     y, nc = attention_apply(
         params["attn"], cfg, h, kind=kind, positions=positions,
         attn_fn=attn_fn, cache=None if cache is None else cache["attn"],
         decode_pos=decode_pos)
     h = h + y
-    h = h + mlp_apply(params["mlp"], cfg, h)
+    if kind == "moe":
+        h = h + moe_apply(params["moe"], cfg, h)[0]
+    else:
+        h = h + mlp_apply(params["mlp"], cfg, h)
     return h, None if cache is None else {"attn": nc}
 
 
@@ -187,13 +213,31 @@ def _head_weight(params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T
 
 
-def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """fp32 logits of h (B, d) from compute-dtype operands."""
+def _head(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """fp32 h @ head from compute-dtype operands (h (..., d))."""
     w = _head_weight(params, cfg).to(h.dtype)
-    logits = h.float() @ w.float()
+    return h.float() @ w.float()
+
+
+def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of h (B, d), softcapped where the arch says so."""
+    logits = _head(params, cfg, h)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def encode(params, cfg: ArchConfig, batch: Dict, *,
+           attn_fn: Callable = multi_head_attention) -> torch.Tensor:
+    """Encoder-only forward (hubert's "prefill"): frame logits (B, S, V)
+    in fp32 from compute-dtype operands, without the logit softcap, as
+    the reference's `encode` returns them."""
+    h = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _ = _run_body(params, cfg, h, positions=positions, attn_fn=attn_fn,
+                     caches=None, decode_pos=None)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _head(params, cfg, h)
 
 
 # ----------------------------------------------------------------------
