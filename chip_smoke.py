@@ -173,6 +173,44 @@ this script. Phases, each of which must pass (no failure is caught):
    1e-5 (fp32) or twice the bf16 floor, aux within 1e-5, drops
    present; the router's probabilities against the CPU's, and a top-k
    that differs only at ties within their measured difference.
+15. The SSM and hybrid LMs at their published width and depth (bf16,
+   random weights from seed 0; B 4, 2048 prompt tokens, 32 generated)
+   through `repro_torch.launch.serve.main`: xlstm-1.3b (48 layers,
+   mLSTM:sLSTM 7:1, no attention: 0 flash launches) and zamba2-7b (81
+   Mamba2 layers and 13 invocations of its two alternating shared
+   attention blocks: 13 flash launches per prefill, one per group, all
+   the bf16 wgmma kernel, 0 per decode step). First and warm prefill
+   seconds, decode tok/s and step ms, peak memory, one warm prefill
+   under torch.profiler. Parity as in phase 14 (kernel vs plain
+   attention for zamba2-7b; prefill(S) vs prefill(S-1) + decode, which
+   holds the decode recurrences and conv/sLSTM states against the
+   chunked prefill; each within twice the bf16 floor), every prefill
+   on freshly zeroed caches (a prefill starts each SSM block from its
+   cache's state). The flash kernel at zamba2-7b's shape (B 4, 32/32,
+   T 2048, D 112, causal): kernel, plain and SDPA ms, the bound, the
+   error against the plain version.
+16. LM training. (a) `repro_torch.launch.train.main` on llama3.2-1b at
+   full width and depth (B 4 x 2048, 2 microbatches, remat, loss chunk
+   512, lr 1e-3): 6 steps with `--ckpt`, then a second call with
+   `--steps 8` that restores step 6 ("restored checkpoint at step 6")
+   and takes steps 7 and 8. Every step launches the bf16 flash forward
+   16 layers x 2 microbatches x 2 (forward and the remat recompute) =
+   64 times, and no GCN kernel; the loss falls from step 1 to step 6;
+   step seconds (median after the first), peak memory, one step under
+   torch.profiler. (b) One `make_train_step` of a 2-layer fp32 copy
+   (full width, B 2 x 256) on the card against the CPU, same state and
+   batch: loss and step metrics within 1e-4 relative, every gradient
+   leaf within 1e-4·max(1, max|g_cpu|). Then in bf16 on the card, at
+   (a)'s microbatch shape (2 layers, B 2 x 2048), the gradient through
+   the kernel (forward by the kernel, backward by the VJP of
+   `blocked_attention`) against autograd of the plain version, within
+   twice the bf16 floor (plain bf16 vs plain fp32 gradients), with the
+   forward's and the backward's launches counted apart (the backward
+   launches only the remat recompute). (c) One step of every other
+   arch at full width, B 2 x 512, at the largest depth whose params
+   stay under TRAIN_CUT_PARAMS (dbrx-132b at 1 of 40 layers, the
+   gradient alone with no AdamW state); each cut printed: finite loss
+   and gradient norm, flash launches as the arch implies.
 
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
@@ -247,6 +285,27 @@ ARCH_PARITY_LAYERS = {"internlm2-20b": 2, "dbrx-132b": 2}
 # the served shape (dbrx-132b's, 16 x 640 slots x 6144 x 10752 per row,
 # is ~1.6e13 FLOP: minutes on the host's cores)
 ARCH_MOE_CPU = "granite-moe-1b-a400m"
+# phase 15: the SSM and hybrid LMs, served through the CLI at full depth
+ARCH_SSM = ("xlstm-1.3b", "zamba2-7b")
+# phase 16: LM training; (a) llama3.2-1b through the CLI, 6 steps and a
+# resumed call to step 8
+TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "2048",
+              "--microbatches", "2", "--lr", "1e-3", "--seed", "0",
+              "--log-every", "1"]
+TRAIN_STEPS = (6, 8)
+# (b) card vs CPU on a 2-layer fp32 copy at B 2 x 256; the bf16 kernel
+# gradient vs the plain one on the card at (a)'s microbatch, B 2 x 2048
+TRAIN_PARITY = dict(layers=2, batch=2, seq=256)
+TRAIN_GRAD_BF16 = dict(batch=2, seq=2048, loss_chunk=512)
+# (c) every other arch, B 2 x 512, cut to the depth whose params stay
+# under TRAIN_CUT_PARAMS: the functional AdamW holds the old and the new
+# moments and params, the grads and the updates at once, ≈36 bytes a
+# param at the update (llama3.2-1b's step peaks at 40.9 GiB), so 1.8 B
+# params (≈60 GiB) is what a step of the card holds. An arch whose one
+# group is larger (dbrx-132b: ≈4.5 B params with its embeddings) takes
+# the gradient alone, without AdamW state (≈8 bytes a param)
+TRAIN_OTHER = dict(batch=2, seq=512)
+TRAIN_CUT_PARAMS = 1.8e9
 
 
 def _smi() -> str:
@@ -1049,7 +1108,11 @@ def phase_flash(results: dict) -> dict:
 
 def _profile(fn, top_n: int = 10) -> dict:
     """Run fn once under torch.profiler: wall ms, device busy ms, idle
-    share and device time by kernel."""
+    share and device time by kernel. The device events (kernels,
+    copies, memsets) are summed by name straight from the trace's raw
+    events: `key_averages()` builds a Python object per event, which
+    takes minutes for a prefill of hundreds of thousands of launches
+    (xlstm-1.3b's sLSTM loop)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1061,11 +1124,10 @@ def _profile(fn, top_n: int = 10) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     device = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-            device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            name = evt.name()
+            device[name] = device.get(name, 0.0) + evt.duration_ns() / 1e6
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:top_n]
     # (name, ms) pairs: names cut to 80 characters can collide
@@ -1086,11 +1148,22 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _zeroed(caches):
+    """`caches` zeroed in place and returned: a prefill starts each SSM
+    block from its cache's state (attention caches it rewrites whole,
+    so zeroing changes nothing there)."""
+    from repro_torch.nn.tree import tree_leaves
+    for t in tree_leaves(caches):
+        t.zero_()
+    return caches
+
+
 def _prefill_then_decode(lm, params, cfg, batch, caches, S):
-    """Logits of the last prompt position by prefill(S-1) and one decode
-    step at its position (after the prefix, if any)."""
+    """Logits of the last prompt position by prefill(S-1), on zeroed
+    caches, and one decode step at its position (after the prefix, if
+    any)."""
     short = dict(batch, tokens=batch["tokens"][:, :S - 1])
-    _, c = lm.prefill(params, cfg, short, caches)
+    _, c = lm.prefill(params, cfg, short, _zeroed(caches))
     pos = cfg.num_prefix_embeddings + S - 1
     dec, _ = lm.decode_step(params, cfg, batch["tokens"][:, S - 1:], c, pos)
     return dec
@@ -1992,16 +2065,25 @@ def _arch_cfg(name: str, layers: int = None):
 
 def _flash_shapes(cfg, T: int) -> list:
     """The distinct flash calls of one prefill (or encode) of cfg at B 4
-    × T tokens: (Hq, Hkv, T, D, causal, window) and the layers each
-    serves."""
+    × T tokens: (Hq, Hkv, T, D, causal, window) and the attention blocks
+    (or shared-block calls) each serves."""
+    from repro_torch.models.config import ATTN_KINDS
+    kinds = [k for k in cfg.block_kinds() if k in ATTN_KINDS]
+    kinds += ["attn"] * (cfg.num_groups if cfg.shared_attn else 0)
     shapes = {}
-    for kind in cfg.block_kinds():
+    for kind in kinds:
         window = cfg.sliding_window if kind == "local" else None
         key = (cfg.num_heads, cfg.num_kv_heads, T, cfg.hd, kind != "enc",
                window)
         shapes[key] = shapes.get(key, 0) + 1
     return [dict(Hq=k[0], Hkv=k[1], T=k[2], D=k[3], causal=k[4],
                  window=k[5], layers=n) for k, n in shapes.items()]
+
+
+def _attention_calls(cfg) -> int:
+    """Flash launches of one prefill: one per attention block and one
+    per shared-block call (one per group)."""
+    return sum(shape["layers"] for shape in _flash_shapes(cfg, 0))
 
 
 def _flash_at(shape: dict, seed: int) -> dict:
@@ -2084,7 +2166,8 @@ def _arch_parity(name: str, cfg, batch, launches_per_call: int) -> dict:
                                  f"launches, expected {launches_per_call}")
         with _recorded_routes(routes_p):
             pl = lm.encode(params, cfg, batch, attn_fn=plain) if encoder \
-                else lm.prefill(params, cfg, batch, caches, attn_fn=plain)[0]
+                else lm.prefill(params, cfg, batch, _zeroed(caches),
+                                attn_fn=plain)[0]
         dec = None if encoder else _prefill_then_decode(
             lm, params, cfg, batch, caches, S)
         if cfg.num_experts:
@@ -2096,7 +2179,8 @@ def _arch_parity(name: str, cfg, batch, launches_per_call: int) -> dict:
             dropless = dataclasses.replace(
                 cfg, moe_capacity_factor=cfg.num_experts
                 / cfg.experts_per_token)
-            full_d = lm.prefill(params, dropless, batch, caches)[0]
+            full_d = lm.prefill(params, dropless, batch,
+                                _zeroed(caches))[0]
             dec_d = _prefill_then_decode(lm, params, dropless, batch,
                                          caches, S)
         moe_check = _moe_card_vs_cpu(cfg, *moe_in) \
@@ -2145,7 +2229,7 @@ def _serve_arch(name: str) -> dict:
     from repro_torch.launch import serve
 
     start = _reset_peak_memory()
-    if name in ARCH_CLI:
+    if name in ARCH_CLI + ARCH_SSM:
         fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
         out = serve.main(["--arch", name, "--batch", str(ARCH_BATCH),
                           "--prompt-len", str(ARCH_PROMPT), "--gen",
@@ -2258,26 +2342,34 @@ def _warm_arch(name: str, cfg) -> dict:
     return res
 
 
-def phase_lm_archs(results: dict, smi: str) -> dict:
-    """Phase 14: serve every other attention-only LM of the reference at
-    its published width; returns the flash launches per arch and the
-    kernel rows of the new flash shapes."""
+def phase_lm_archs(results: dict, smi: str, names=ARCH_NAMES_14,
+                   tag: str = "lm-archs", result_key: str = "lm_archs"
+                   ) -> dict:
+    """Phase 14 (the other attention-only LMs, `names` by default) and
+    phase 15 (the SSM and hybrid LMs): serve each at its published
+    width; returns the flash launches per arch and the kernel rows of
+    the new flash shapes."""
     import torch
 
     archs, shape_rows, launches = {}, {}, {}
-    for name in ARCH_NAMES_14:
+    for name in names:
         t_arch = time.perf_counter()
         cfg = _arch_cfg(name, ARCH_DBRX_LAYERS if name == "dbrx-132b"
                         else None)
         L = cfg.num_layers
+        n = _attention_calls(cfg)
         # --- the main path: the launch counts start at 0 inside -------
         res = _serve_arch(name)
         # -----------------------------------------------------------------
-        expect = {"encode": L} if cfg.is_encoder else {"prefill": L,
+        expect = {"encode": n} if cfg.is_encoder else {"prefill": n,
                                                        "decode": 0}
-        print(f"[lm-archs] {name} ({L} layers{' of 40' if name == 'dbrx-132b' else ''}"
+        ssm = set(cfg.block_kinds()) & {"mamba2", "mlstm", "slstm"}
+        print(f"[{tag}] {name} ({L} layers{' of 40' if name == 'dbrx-132b' else ''}"
               f", d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
-              f"D {cfg.hd}): flash launches {res['launches']} (expected "
+              f"D {cfg.hd}"
+              + (f"; {'+'.join(sorted(ssm))} mixers" if ssm else "")
+              + (f", {n} shared-block calls" if cfg.shared_attn else "")
+              + f"): flash launches {res['launches']} (expected "
               f"{expect}), of them the bf16 wgmma kernel "
               f"{res['launches_sm90']}; logits finite: {res['finite']}; "
               f"first {'encode' if cfg.is_encoder else 'prefill'} "
@@ -2286,18 +2378,18 @@ def phase_lm_archs(results: dict, smi: str) -> dict:
                  f"; decode {res['decode_tok_s']:.1f} tok/s over "
                  f"{res['decode_steps']} steps")
               + f"; peak {res['peak']['peak_gib']:.2f} GiB  ({smi})")
-        if res["launches"] != expect or res["launches_total"] != L \
-                or res["launches_sm90"] != L or not res["finite"]:
+        if res["launches"] != expect or res["launches_total"] != n \
+                or res["launches_sm90"] != n or not res["finite"]:
             raise AssertionError(f"{name} serving: {res}")
         launches[name] = res["launches"]
         res.update(_warm_arch(name, cfg))
         prof = res["profile"]
-        print(f"[lm-archs] {name}: warm {'encode' if cfg.is_encoder else 'prefill'} "
+        print(f"[{tag}] {name}: warm {'encode' if cfg.is_encoder else 'prefill'} "
               f"{res['prefill_warm_median_s']:.4f} s (median of 3)"
               + ("" if cfg.is_encoder else
                  f", decode step {res['decode_step_median_ms']:.3f} ms "
                  f"(median of 5)") + f"  ({smi})")
-        _print_profile(f"lm-archs {name} profile", prof)
+        _print_profile(f"{tag} {name} profile", prof)
         for shape in _flash_shapes(cfg, cfg.num_prefix_embeddings
                                    + ARCH_PROMPT):
             key = tuple(shape[k] for k in ("Hq", "Hkv", "T", "D", "causal",
@@ -2306,7 +2398,7 @@ def phase_lm_archs(results: dict, smi: str) -> dict:
                 row = _flash_at(shape, seed=len(shape_rows))
                 row["archs"] = {}
                 shape_rows[key] = row
-                print(f"[lm-archs] flash B {ARCH_BATCH} {shape['Hq']}/"
+                print(f"[{tag}] flash B {ARCH_BATCH} {shape['Hq']}/"
                       f"{shape['Hkv']} T {shape['T']} D {shape['D']} "
                       f"{'causal' if shape['causal'] else 'non-causal'}"
                       f"{'' if shape['window'] is None else ' window ' + str(shape['window'])}: "
@@ -2319,9 +2411,10 @@ def phase_lm_archs(results: dict, smi: str) -> dict:
             shape_rows[key]["archs"][name] = shape["layers"]
         pcfg = _arch_cfg(name, ARCH_PARITY_LAYERS.get(
             name, cfg.num_layers))
-        par = _arch_parity(name, pcfg, _arch_batch(pcfg), pcfg.num_layers)
+        par = _arch_parity(name, pcfg, _arch_batch(pcfg),
+                           _attention_calls(pcfg))
         res["parity"] = par
-        msg = (f"[lm-archs] {name} parity ({par['layers']} layers, full "
+        msg = (f"[{tag}] {name} parity ({par['layers']} layers, full "
                f"width): bf16 kernel vs plain rel "
                f"{par['bf16_kernel_vs_plain']:.3e}")
         if "bf16_prefill_vs_decode" in par:
@@ -2348,7 +2441,7 @@ def phase_lm_archs(results: dict, smi: str) -> dict:
         print(msg)
         for dt, mc in par.get("moe_card_vs_cpu", {}).items():
             dr = mc["drops"]
-            print(f"[lm-archs] {name} layer-0 moe_apply at B {ARCH_BATCH} x "
+            print(f"[{tag}] {name} layer-0 moe_apply at B {ARCH_BATCH} x "
                   f"{ARCH_PROMPT}, {dt}, card vs CPU on the card's routing: "
                   f"y rel {mc['y_rel']:.3e} (bound {mc['y_bound']:.3e}), aux "
                   f"{mc['aux']:.6f} rel {mc['aux_rel']:.3e} (bound 1e-5), "
@@ -2363,13 +2456,354 @@ def phase_lm_archs(results: dict, smi: str) -> dict:
                 and par.get("bf16_prefill_vs_decode", 0.0) <= par["bf16_bound"]):
             raise AssertionError(f"{name} parity: {par}")
         res["seconds"] = time.perf_counter() - t_arch
-        print(f"[lm-archs] {name}: {res['seconds']:.1f} s in this phase  "
+        print(f"[{tag}] {name}: {res['seconds']:.1f} s in this phase  "
               f"({smi})")
         archs[name] = res
         torch.cuda.empty_cache()
-    results["lm_archs"] = dict(gpu=smi, archs=archs,
+    results[result_key] = dict(gpu=smi, archs=archs,
                                flash_shapes=list(shape_rows.values()))
     return dict(launches=launches, flash_shapes=list(shape_rows.values()))
+
+
+# ----------------------------------------------------------------------
+# phase 16: LM training
+# ----------------------------------------------------------------------
+def _train_launches(cfg, microbatches: int, remat: bool = True) -> int:
+    """Flash launches of one train step: each attention block (and
+    shared-block invocation) of a group runs forward and, with remat,
+    again in the backward's recompute; the tail is not checkpointed."""
+    from repro_torch.models.config import ATTN_KINDS
+    per_group = sum(k in ATTN_KINDS for k in cfg.pattern) \
+        + int(cfg.shared_attn)
+    tail = sum(k in ATTN_KINDS for k in cfg.tail)
+    return microbatches * (cfg.num_groups * per_group * (1 + remat) + tail)
+
+
+def _counts() -> tuple:
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels import flash_attention as fa
+    return (fa.LAUNCHES, fa.LAUNCHES_SM90, block_spmm.LAUNCHES,
+            block_spmm.LAUNCHES_FUSED)
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels import flash_attention as fa
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+    block_spmm.LAUNCHES = block_spmm.LAUNCHES_FUSED = 0
+
+
+def _train_cli(argv: list) -> tuple:
+    """`launch.train.main(argv)` with its stdout echoed and kept; the
+    launch counts of the call, each from 0."""
+    import io
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        out = train.main(argv)
+    counts = _counts()
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue(), counts
+
+
+def _grad_rel(got, want) -> float:
+    """Largest per-leaf max|Δ| / max(1, max|want|)."""
+    return max(float((g.float().cpu() - w.float().cpu()).abs().max())
+               / max(1.0, float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def _train_parity(smi: str) -> dict:
+    """16b: one step of a 2-layer fp32 copy on the card vs the CPU, then
+    the bf16 gradient through the kernel vs autograd of the plain
+    version, against the bf16 floor."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist.sharding import CellPolicy
+    from repro_torch.dist.steps import make_train_step, spec_train_state
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import multi_head_attention_ref
+    from repro_torch.models import lm
+    from repro_torch.models.spec import init_tree
+    from repro_torch.nn.optim import adamw
+    from repro_torch.nn.tree import tree_leaves, tree_map
+
+    P = TRAIN_PARITY
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"),
+                              num_layers=P["layers"], compute_dtype="float32")
+    state = init_tree(spec_train_state(cfg),
+                      torch.Generator().manual_seed(0), "cpu")
+    toks = TokenPipeline(cfg.vocab_size, P["batch"], P["seq"],
+                         seed=1).batch_at(0)["tokens"]
+    policy = CellPolicy(microbatches=1, remat=True, loss_chunk=P["seq"])
+    step = make_train_step(cfg, policy, adamw(1e-3, weight_decay=0.01,
+                                              clip_norm=1.0))
+
+    def grads(c, params, batch, attn_fn=None, remat=True,
+              loss_chunk=P["seq"]):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        kw = {} if attn_fn is None else dict(attn_fn=attn_fn)
+        n0 = fa.LAUNCHES
+        loss, _ = lm.lm_loss(live, c, batch, remat=remat,
+                             loss_chunk=loss_chunk, **kw)
+        n1 = fa.LAUNCHES
+        g = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.detach(), g, (n1 - n0, fa.LAUNCHES - n1)
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = tree_map(lambda t: t.to(dev), state)
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        loss, g, n = grads(cfg, st["params"], batch)
+        t0 = time.perf_counter()
+        _, metrics = step(st, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        out[dev] = dict(loss=float(loss), grads=[x.cpu() for x in g],
+                        launches=n, metrics=metrics,
+                        step_s=time.perf_counter() - t0)
+        del st
+    cpu, card = out["cpu"], out["cuda"]
+    fp32 = dict(
+        loss_rel=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        grad_rel=_grad_rel(card["grads"], cpu["grads"]),
+        metrics_rel={k: abs(card["metrics"][k] - v) / max(1.0, abs(v))
+                     for k, v in cpu["metrics"].items()},
+        launches_fwd_bwd=card["launches"], cpu_launches=cpu["launches"],
+        cpu_step_s=cpu["step_s"], card_step_s=card["step_s"])
+    print(f"[lm-train] 16b {P['layers']}-layer fp32 copy, B {P['batch']} x "
+          f"{P['seq']}, card vs CPU: loss rel {fp32['loss_rel']:.3e}, "
+          f"grads {fp32['grad_rel']:.3e} (bound {STEP_TOL}·max(1, "
+          f"max|g|)), step metrics "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fp32["metrics_rel"].items())
+          + f"; flash launches forward/backward {card['launches']} (CPU "
+          f"{cpu['launches']})  ({smi})")
+    if not (fp32["loss_rel"] <= STEP_TOL and fp32["grad_rel"] <= STEP_TOL
+            and max(fp32["metrics_rel"].values()) <= STEP_TOL
+            and card["launches"] == (P["layers"], P["layers"])
+            and cpu["launches"] == (0, 0)):
+        raise AssertionError(f"training step card vs CPU: {fp32}")
+
+    # bf16 on the card, at 16a's microbatch shape: the kernel's gradient
+    # vs the plain version's
+    G = TRAIN_GRAD_BF16
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    params = tree_map(lambda t: t.cuda(), state["params"])
+    batch = {"tokens": torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, G["batch"], G["seq"], seed=1).batch_at(0)[
+            "tokens"]).cuda()}
+    kw = dict(loss_chunk=G["loss_chunk"])
+    _, g_kern, n_kern = grads(cfg16, params, batch, **kw)
+    _, g_kern_nr, n_nr = grads(cfg16, params, batch, remat=False, **kw)
+    _, g_plain, n_plain = grads(cfg16, params, batch,
+                                attn_fn=multi_head_attention_ref, **kw)
+    _, g32, _ = grads(cfg, params, batch, attn_fn=multi_head_attention_ref,
+                      **kw)
+    floor = _grad_rel(g_plain, g32)
+    bf16 = dict(shape=f"{P['layers']} layers, B {G['batch']} x {G['seq']}",
+                kernel_vs_plain=_grad_rel(g_kern, g_plain),
+                kernel_vs_fp32=_grad_rel(g_kern, g32), floor=floor,
+                bound=2 * floor, launches_remat=n_kern,
+                launches_no_remat=n_nr, launches_plain=n_plain,
+                remat_vs_not=_grad_rel(g_kern, g_kern_nr))
+    print(f"[lm-train] 16b bf16 on the card ({bf16['shape']}, 16a's "
+          f"microbatch): gradient through the kernel "
+          f"vs autograd of the plain version {bf16['kernel_vs_plain']:.3e} "
+          f"(bound 2 x the bf16 floor = {bf16['bound']:.3e}; floor = plain "
+          f"bf16 vs plain fp32 {floor:.3e}; kernel vs fp32 "
+          f"{bf16['kernel_vs_fp32']:.3e}); remat on vs off "
+          f"{bf16['remat_vs_not']:.3e}; flash launches forward/backward: "
+          f"remat {n_kern}, no remat {n_nr}, plain {n_plain}  ({smi})")
+    L = P["layers"]
+    if not (bf16["kernel_vs_plain"] <= bf16["bound"]
+            and n_kern == (L, L) and n_nr == (L, 0) and n_plain == (0, 0)):
+        raise AssertionError(f"bf16 training gradient: {bf16}")
+    return dict(fp32=fp32, bf16=bf16)
+
+
+def _train_cfg(name: str):
+    """(cfg, what was cut, whether the step holds AdamW state): full
+    width, the largest number of groups whose params stay under
+    TRAIN_CUT_PARAMS, at least one; a config still above it (dbrx-132b)
+    takes the gradient alone."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.spec import spec_params
+    full = get_arch(name)
+    for g in range(full.num_groups, 0, -1):
+        cfg = dataclasses.replace(
+            full, num_layers=g * len(full.pattern) + len(full.tail))
+        if spec_params(lm.spec_params(cfg)) <= TRAIN_CUT_PARAMS or g == 1:
+            break
+    n = spec_params(lm.spec_params(cfg))
+    adam = n <= TRAIN_CUT_PARAMS
+    cut = "full depth" if cfg.num_layers == full.num_layers else \
+        f"{cfg.num_layers} of {full.num_layers} layers"
+    cut += f", {n / 1e9:.3f} B params"
+    return cfg, cut + ("" if adam else ", gradient only (no AdamW state)"), \
+        adam
+
+
+def _grad_only_step(cfg, policy):
+    """(state, batch) -> (state, metrics): `make_train_step`'s loss,
+    acc and gradient norm, through `accumulate_gradients` of `lm_loss`,
+    with no optimizer state and no update."""
+    from repro_torch.models import lm
+    from repro_torch.nn import accumulate_gradients
+    from repro_torch.nn.optim import global_norm
+
+    def loss_fn(params, mb):
+        loss, metrics = lm.lm_loss(params, cfg, mb, remat=policy.remat,
+                                   loss_chunk=policy.loss_chunk)
+        return loss, {"acc": metrics["acc"]}
+
+    def step(state, batch):
+        loss, aux, grads = accumulate_gradients(
+            loss_fn, state["params"], batch, policy.microbatches)
+        return state, {"loss": loss, "acc": aux["acc"],
+                       "grad_norm": global_norm(grads)}
+    return step
+
+
+def phase_lm_train(results: dict, smi: str, work: pathlib.Path) -> dict:
+    """Phase 16: LM training through the CLI (a), card vs CPU and the
+    bf16 gradient (b), one step of every other arch (c); returns the
+    flash launches per training path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_NAMES, get_arch, make_inputs
+    from repro_torch.dist.sharding import CellPolicy
+    from repro_torch.dist.steps import make_train_step, spec_train_state
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.spec import init_tree, spec_params
+    from repro_torch.nn.optim import adamw, warmup_cosine_schedule
+
+    cfg = get_arch("llama3.2-1b")
+    per_step = _train_launches(cfg, 2)
+    ck = work / "lm_ckpt"
+    start = _reset_peak_memory()
+    t0 = time.perf_counter()
+    # --- the main path: the launch counts start at 0 inside -------------
+    out1, _, n1 = _train_cli(TRAIN_ARGV + ["--steps", str(TRAIN_STEPS[0]),
+                                           "--ckpt", str(ck)])
+    t1 = time.perf_counter()
+    out2, log2, n2 = _train_cli(TRAIN_ARGV + ["--steps", str(TRAIN_STEPS[1]),
+                                              "--ckpt", str(ck)])
+    # ---------------------------------------------------------------------
+    t2 = time.perf_counter()
+    peak = _peak_memory(start)
+    hist = out1["history"] + out2["history"]
+    losses = [r["loss"] for r in hist]
+    step_s = [r["seconds"] for r in out1["history"][1:]
+              + out2["history"][1:]]
+    restored = f"restored checkpoint at step {TRAIN_STEPS[0]}" in log2
+    a = dict(losses=losses, acc=[r["acc"] for r in hist],
+             grad_norm=[r["grad_norm"] for r in hist],
+             step_s=[r["seconds"] for r in hist],
+             step_median_s=float(np.median(step_s)),
+             call_s=[t1 - t0, t2 - t1], restored=restored,
+             # outside the steps: init, the restore (the newest step is
+             # verified, then read) and the final save of 15 GB of state
+             outside_steps_s=[t1 - t0 - sum(r["seconds"]
+                                            for r in out1["history"]),
+                              t2 - t1 - sum(r["seconds"]
+                                            for r in out2["history"])],
+             launches={"steps 1-6": n1[0], "steps 7-8": n2[0]},
+             launches_per_step=per_step, peak=peak)
+    print(f"[lm-train] 16a llama3.2-1b (16 x 2048, "
+          f"{spec_params(lm.spec_params(cfg)) / 1e9:.3f} B params), B 4 x "
+          f"2048, 2 microbatches, remat: loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step {a['step_median_s'] * 1e3:.1f} ms (median after the "
+          f"first; first {hist[0]['seconds']:.2f} s); calls "
+          f"{a['call_s'][0]:.1f} s and {a['call_s'][1]:.1f} s, of them "
+          f"{a['outside_steps_s'][0]:.1f} s and "
+          f"{a['outside_steps_s'][1]:.1f} s outside the steps (init, "
+          f"checkpoint restore and save); restored at step "
+          f"{TRAIN_STEPS[0]}: {restored}; flash launches {n1[0]} and "
+          f"{n2[0]} ({per_step} a step expected), bf16 wgmma {n1[1]} and "
+          f"{n2[1]}, GCN kernels {n1[2:] + n2[2:]}; peak "
+          f"{peak['peak_gib']:.2f} GiB  ({smi})")
+    steps1 = TRAIN_STEPS[0]
+    steps2 = TRAIN_STEPS[1] - TRAIN_STEPS[0]
+    if not (restored and out2["start_step"] == steps1
+            and [r["step"] for r in hist] == list(
+                range(1, TRAIN_STEPS[1] + 1))
+            and all(np.isfinite(losses)) and losses[steps1 - 1] < losses[0]
+            and n1 == (per_step * steps1, per_step * steps1, 0, 0)
+            and n2 == (per_step * steps2, per_step * steps2, 0, 0)):
+        raise AssertionError(f"LM training through the CLI: {a}")
+
+    # one step under the profiler, from a fresh state
+    state = init_tree(spec_train_state(cfg), torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    step = make_train_step(cfg, CellPolicy(microbatches=2, loss_chunk=512),
+                           adamw(warmup_cosine_schedule(1e-3, 10, 6),
+                                 weight_decay=0.01, clip_norm=1.0))
+    batch = {"tokens": torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, 4, 2048, seed=0).batch_at(0)["tokens"]).cuda()}
+    state, _ = step(state, batch)
+    holder = {}
+
+    def one_step():
+        holder["state"], _ = step(state, batch)
+    a["profile"] = _profile(one_step, top_n=8)
+    del state, holder
+    torch.cuda.empty_cache()
+    _print_profile("lm-train 16a step profile", a["profile"])
+    results["lm_train"] = dict(gpu=smi, cli=a)
+
+    results["lm_train"]["parity"] = _train_parity(smi)
+    torch.cuda.empty_cache()
+
+    others, launches = {}, {"llama3.2-1b": a["launches"]}
+    for name in ARCH_NAMES:
+        if name == "llama3.2-1b":
+            continue
+        c, cut, adam = _train_cfg(name)
+        start = _reset_peak_memory()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = make_inputs(c, ShapeConfig("train", "train",
+                                           TRAIN_OTHER["seq"],
+                                           TRAIN_OTHER["batch"]), 0, "cuda")
+        policy = CellPolicy(microbatches=1, loss_chunk=512)
+        if adam:
+            state = init_tree(spec_train_state(c), gen, "cuda")
+            step = make_train_step(c, policy, adamw(
+                1e-3, weight_decay=0.01, clip_norm=1.0))
+        else:
+            state = {"params": init_tree(lm.spec_params(c), gen, "cuda")}
+            step = _grad_only_step(c, policy)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        n = _counts()
+        expect = _train_launches(c, 1)
+        row = dict(cut=cut, layers=c.num_layers, metrics=metrics,
+                   step_s=seconds, launches=n[0], expected=expect,
+                   peak=_peak_memory(start))
+        others[name] = row
+        launches[name] = n[0]
+        print(f"[lm-train] 16c {name} ({cut}), B {TRAIN_OTHER['batch']} x "
+              f"{TRAIN_OTHER['seq']}: loss {metrics['loss']:.4f}, grad norm "
+              f"{metrics['grad_norm']:.4f}, first step {seconds:.2f} s, "
+              f"flash launches {n[0]} (expected {expect}), peak "
+              f"{row['peak']['peak_gib']:.2f} GiB  ({smi})")
+        del state, batch
+        torch.cuda.empty_cache()
+        if not (np.isfinite(metrics["loss"])
+                and np.isfinite(metrics["grad_norm"])
+                and n == (expect, expect, 0, 0)):
+            raise AssertionError(f"{name} training step: {row}")
+    results["lm_train"]["others"] = others
+    return launches
 
 
 def main() -> int:
@@ -2446,6 +2880,8 @@ def main() -> int:
         real_launches = phase_real(results, work)
         dp_launches = phase_dp(results, work)
         archs = phase_lm_archs(results, smi)
+        ssm = phase_lm_archs(results, smi, ARCH_SSM, "lm-ssm", "lm_ssm")
+        train_launches = phase_lm_train(results, smi, work)
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
@@ -2509,17 +2945,22 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "fp32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": lm_launches + sum(sum(n.values()) for n in
-                                      archs["launches"].values()),
+        "launches": lm_launches + sum(
+            sum(n.values()) if isinstance(n, dict) else n for n in (
+                *archs["launches"].values(), *ssm["launches"].values(),
+                *train_launches.values())),
         "launches_by_path": {"llama3.2-1b": results["lm_serve"]["launches"],
-                             **archs["launches"]},
+                             **archs["launches"], **ssm["launches"],
+                             **{f"train {k}": n
+                                for k, n in train_launches.items()}},
         **numbers(flash_row),
         "tflop_s": flash_row["tflop_s"],
         "shape": {k: flash_row[k] for k in ("B", "Hq", "Hkv", "Tq", "Tk",
                                             "D", "dtype", "mask")},
         "served_shapes": [dict(numbers(row), **{k: row[k] for k in (
             "B", "Hq", "Hkv", "T", "D", "causal", "window", "archs",
-            "vs_library", "bound_share")}) for row in archs["flash_shapes"]],
+            "vs_library", "bound_share")})
+            for row in archs["flash_shapes"] + ssm["flash_shapes"]],
     }]
     results["kernels"] = kernels
     out = ROOT / "chiprun_out"

@@ -1,10 +1,9 @@
 """Paper dataset presets (Table 4 and the §4.3 deep recipe) as
 ExperimentSpec factories — copies of `repro.configs.{ppi,reddit,amazon2m}`
 building the port's spec classes — and the LM architecture registry of
-`repro.configs`: `get_arch`, `ARCH_NAMES` (the archs the port runs),
+`repro.configs`: `get_arch`, `ARCH_NAMES` (every arch of the reference),
 `cell_supported`, and the model inputs of a cell (`input_specs`,
-`make_inputs`). An arch of the reference that the port does not run
-yet raises NotImplementedError naming its ROADMAP item."""
+`make_inputs`)."""
 from __future__ import annotations
 
 import importlib
@@ -24,20 +23,13 @@ _MODULES = {
     "dbrx-132b": "dbrx_132b",
     "hubert-xlarge": "hubert_xlarge",
     "paligemma-3b": "paligemma_3b",
-}
-# the reference's other archs and the slice that brings each
-_LATER = {
-    "xlstm-1.3b": "ROADMAP A6.5: the SSM blocks",
-    "zamba2-7b": "ROADMAP A6.5: the SSM blocks and the Zamba2 shared "
-                 "blocks",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "zamba2-7b": "zamba2_7b",
 }
 ARCH_NAMES = tuple(_MODULES)
 
 
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:
-    if name in _LATER:
-        raise NotImplementedError(f"arch {name!r} is not ported yet "
-                                  f"({_LATER[name]})")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; the port runs "
                        f"{list(ARCH_NAMES)}")

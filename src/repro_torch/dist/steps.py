@@ -1,5 +1,14 @@
 """Step builders — the port of `repro.dist.steps`.
 
+LM training: `spec_train_state` is the TensorSpec tree of the whole
+train state (params, the AdamW step and fp32 moments), which
+`init_tree` materializes; `make_train_step` returns (state, batch) ->
+(state, metrics) on one device: `lm_loss` under the CellPolicy's remat
+and loss chunk, gradients accumulated in fp32 over the policy's
+microbatches (`nn.core.accumulate_gradients`), then the optimizer. The
+state's keys are the reference's, so a checkpoint of either package's
+train state restores in the other.
+
 LM serving: `make_prefill_step` / `make_decode_step` (decoders) and
 `make_encode_step` (encoder-only archs) are plain closures over the
 architecture config (the port runs a model on one card).
@@ -15,7 +24,7 @@ the same optimizer update, so the params stay identical everywhere.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict
 
 import torch
 import torch.distributed as dist
@@ -29,13 +38,73 @@ from repro_torch.dist.compression import (DEFAULT_GROUP_SIZE,
                                           error_feedback_message)
 from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
+from repro_torch.dist.sharding import CellPolicy
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import decode_step, encode, prefill
-from repro_torch.nn.optim import Optimizer, apply_updates
-from repro_torch.nn.tree import Tree, tree_leaves, tree_map
+from repro_torch.models.lm import (decode_step, encode, lm_loss, prefill,
+                                   spec_params)
+from repro_torch.models.spec import TensorSpec, map_specs
+from repro_torch.nn.core import accumulate_gradients
+from repro_torch.nn.optim import (AdamState, Optimizer, apply_updates,
+                                  global_norm)
+from repro_torch.nn.tree import Tree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.runtime import faults
 
 COMPRESSIONS = (None, "bf16", 4, 8)
+
+
+# ----------------------------------------------------------------------
+# LM training
+# ----------------------------------------------------------------------
+def spec_train_state(cfg: ArchConfig) -> Dict:
+    """TensorSpec tree for {params, step, mu, nu}: the params, and the
+    AdamW state `adamw()` builds (an int32 step, fp32 moments)."""
+    params = spec_params(cfg)
+
+    def moment(s: TensorSpec) -> TensorSpec:
+        return TensorSpec(s.shape, s.axes, init="zeros",
+                          dtype=torch.float32)
+    return {"params": params,
+            "step": TensorSpec((), (), init="zeros", dtype=torch.int32),
+            "mu": map_specs(moment, params),
+            "nu": map_specs(moment, params)}
+
+
+def make_train_step(cfg: ArchConfig, policy: CellPolicy,
+                    opt: Optimizer) -> Callable:
+    """(state, batch) -> (state, metrics "loss", "acc", "grad_norm"),
+    the metrics 0-d tensors on the state's device (reading them syncs
+    the host; the step itself does not). With policy.microbatches = m >
+    1 the batch's leading dim is split into m microbatches whose
+    gradients accumulate in fp32 and are averaged; loss and accuracy
+    are the microbatches' means. The port trains on one device, so
+    `policy.fsdp` (sharding over a mesh) raises until ROADMAP A7 ports
+    the sharding rules."""
+    if policy.fsdp:
+        raise NotImplementedError(
+            "CellPolicy.fsdp shards over a device mesh; the port trains on "
+            "one device until the sharding rules are ported (ROADMAP A7)")
+
+    def loss_fn(params, mb):
+        loss, metrics = lm_loss(params, cfg, mb, remat=policy.remat,
+                                loss_chunk=policy.loss_chunk)
+        return loss, {"acc": metrics["acc"]}
+
+    def step(state: Dict, batch: Dict):
+        params = state["params"]
+        loss, aux, grads = accumulate_gradients(loss_fn, params, batch,
+                                                policy.microbatches)
+        with torch.no_grad():
+            opt_state = AdamState(step=state["step"], mu=state["mu"],
+                                  nu=state["nu"])
+            updates, opt_state = opt.update(grads, opt_state, params)
+            new_state = {"params": apply_updates(params, updates),
+                         "step": opt_state.step, "mu": opt_state.mu,
+                         "nu": opt_state.nu}
+            metrics = {"loss": loss, "acc": aux["acc"],
+                       "grad_norm": global_norm(grads)}
+        return new_state, metrics
+
+    return step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
@@ -203,11 +272,11 @@ def make_gcn_train_step(cfg: GCNConfig, opt: Optimizer, group=None, *,
                            .to(g.dtype))
                 off += n
             total = flat[off:]
-            synced = _unflatten_like(params, out)
+            synced = tree_unflatten(params, out)
             updates, opt_state = opt.update(synced, state["opt"], params)
             new_params = apply_updates(params, updates)
             if bits is not None:
-                new_err = _unflatten_like(params, [
+                new_err = tree_unflatten(params, [
                     _replace_row(e, rank, r) for e, r in zip(errs, rows)])
             if pol.scaled:
                 # the reduced grads are NaN everywhere if ANY rank
@@ -238,11 +307,6 @@ def make_gcn_train_step(cfg: GCNConfig, opt: Optimizer, group=None, *,
             batches = _poison_batches(batches, rule)
         return step(state, generator, batches)
     return wrapped
-
-
-def _unflatten_like(tree: Tree, leaves: List[torch.Tensor]) -> Tree:
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
 
 
 def _replace_row(stack: torch.Tensor, r: int, row: torch.Tensor

@@ -19,6 +19,15 @@ by dtype, with no fallback between any two of these:
 - fp32: `csrc/flash_attention.cu` (`flash_attention_f32`), fp32 CUDA
   cores, the reference's numerics (TF32 stays off).
 
+Every CUDA call goes through `_FlashAttention`, a
+`torch.autograd.Function` whose forward launches the kernel and saves
+q, k and v (outside autograd `apply` records nothing); its backward
+recomputes `ref.blocked_attention` on them under `torch.enable_grad()`
+and returns that function's vector-Jacobian product — the gradient the
+reference takes, by XLA's autodiff of `blocked_attention`, since its
+flash kernel has no VJP either. The backward launches no kernel. CPU
+tensors take the plain version, which autograd differentiates.
+
 Semantics are the reference kernel's: scale (default D^-½), optional
 tanh softcap, then causal / sliding-window masks on absolute positions
 with q aligned to the end of k; fp32 scores, max, denominator and P·V
@@ -34,7 +43,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import multi_head_attention_ref
+from repro_torch.kernels.ref import (blocked_attention,
+                                     multi_head_attention_ref)
 
 # kernel launches since import (or since a caller reset it): a run shows
 # it went through a kernel by reading these before and after. LAUNCHES
@@ -111,14 +121,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = q.unsqueeze(1), k.unsqueeze(1), v.unsqueeze(1)
     _check(q, k, v)
     scale = float(scale) if scale is not None else 1.0 / (q.shape[3] ** 0.5)
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
-        out = multi_head_attention_ref(q, k, v, **kw)
+        out = multi_head_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
     elif q.device.type == "cuda":
-        out = _launch(q, k, v, **kw)
+        out = _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
     else:
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     return out.squeeze(1) if flat else out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward; the backward is the VJP of
+    `ref.blocked_attention` at the saved q, k, v (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return _launch(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = blocked_attention(*inputs, **ctx.kw)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,) * 4
 
 
 def _check_tma(*tensors) -> None:

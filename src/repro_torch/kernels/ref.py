@@ -110,6 +110,53 @@ def multi_head_attention_ref(q: torch.Tensor, k: torch.Tensor,
     return flash_attention_ref(q, k, v, **kw)
 
 
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = True, window=None, softcap=None,
+                      scale=None, q_chunk: int = 128) -> torch.Tensor:
+    """Copy of `repro.kernels.ref.blocked_attention`, the function the
+    reference differentiates when it trains (XLA's autodiff; its flash
+    kernel has no VJP): q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D). q is cut
+    into `q_chunk` rows (the last zero-padded); each chunk's fp32 scores
+    against its kv slice (all of k, or for a window the `window +
+    q_chunk` keys it can see), the softcap, the -1e30 mask and a plain
+    softmax. GQA groups the q heads by kv head (q head h reads kv head
+    h // rep), so kv is never repeated. Returns q's dtype; a row that
+    sees no key gets the mean of its slice's v, as in the reference."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    cq = min(q_chunk, Tq)
+    pad = (-Tq) % cq
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, Hq, pad, D))], 2)
+    qs = q.reshape(B, Hkv, rep, -1, D)
+    offset = Tk - Tq
+    kw = Tk if window is None else min(Tk, window + cq)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for start in range(0, q.shape[2], cq):
+        k0 = 0 if kw == Tk else min(max(start + offset - window + 1, 0),
+                                    Tk - kw)
+        kc, vc = kf[:, :, k0:k0 + kw], vf[:, :, k0:k0 + kw]
+        qc = qs[:, :, :, start:start + cq].float()
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qc, kc) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        qpos = torch.arange(start, start + cq, device=q.device)[:, None] \
+            + offset
+        kpos = torch.arange(k0, k0 + kw, device=q.device)[None, :]
+        mask = kpos < Tk
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bgrqk,bgkd->bgrqd", p, vc).to(q.dtype))
+    out = torch.cat(outs, 3).reshape(B, Hq, -1, D)
+    return out[:, :, :Tq]
+
+
 def mha_ref(q, k, v, *, causal: bool = True, window=None, softcap=None,
             scale=None) -> torch.Tensor:
     """Copy of `repro.kernels.ref.mha_ref`, the reference's testing

@@ -1,73 +1,90 @@
-"""Unified pattern-stacked language model — the serving half of
-`repro.models.lm` (everything but the training loss).
+"""Unified pattern-stacked language model — the port of
+`repro.models.lm`.
 
 Layer stack = `num_groups` × `pattern` (params stacked on a leading
-group axis) + unstacked `tail` blocks. The reference scans the groups
-with `lax.scan`; here a Python loop walks the group axis, handing each
-block views of its group's params and caches, so the caches keep the
-reference's stacked layout and are written in place.
+group axis) + unstacked `tail` blocks. Zamba2-style shared attention
+blocks run at the end of every group, alternating between
+`shared_attn_count` weight sets (`gidx % count`); each invocation has
+its own KV cache, stacked on the group axis. The reference scans the
+groups with `lax.scan`; here a Python loop walks the group axis, handing
+each block views of its group's params and caches, so the caches keep
+the reference's stacked layout and are written in place.
 
 Entry points:
   spec_params / spec_caches — TensorSpec trees (single source of truth)
+  lm_loss                   — training loss: chunked softmax CE, each
+                              chunk under `torch.utils.checkpoint`, so
+                              the logits of one chunk are live at a time
+                              and recomputed in the backward
   prefill                   — run the prompt, write caches, last-position
                               logits
   decode_step               — one token in, caches updated
   encode                    — encoder-only forward (hubert): frame
                               logits (B, S, V)
 
+With `remat` (training), each group runs under non-reentrant
+`torch.utils.checkpoint`, the reference's `jax.checkpoint` with
+`nothing_saveable`: only the group's input is kept, and the backward
+recomputes the group.
+
 `cast_matmul_leaf` is the rule for which params are cast once to the
-compute dtype (identical values to the per-use cast; the norm scales
-stay fp32): `launch.serve.init_params` applies it to each leaf as it is
-drawn, `cast_matmul_weights` to a whole fp32 tree (the oracle the tests
-hold init_params to).
+compute dtype (identical values to the per-use cast): a leaf is cast
+only if every use of it is a cast to the compute dtype, so the norm
+scales, the sLSTM recurrence `r` and bias `b` (used in fp32) and the
+Mamba2 `A_log` and `dt_bias` (fp32 decay) stay fp32.
+`launch.serve.init_params` applies it to each leaf as it is drawn,
+`cast_matmul_weights` to a whole fp32 tree. Training never pre-casts:
+the fp32 masters are cast at each use, as in the reference.
 
 Logits are fp32, computed from the compute-dtype operands (the
 reference's `preferred_element_type=float32`): the rounded operands are
 upcast, which is exact, and multiplied in fp32.
 
-Batches carry "tokens" (B, S) int, or "embeddings" (B, S, d) for the
-stub-frontend encoder (hubert), or "prefix_embeddings" (B, npfx, d) and
-"tokens" for the VLM (paligemma), whose prefix comes first.
+Batches carry "tokens" (B, S) int, or "embeddings" (B, S, d) and, for
+training, "targets" (B, S) for the stub-frontend encoder (hubert), or
+"prefix_embeddings" (B, npfx, d) and "tokens" for the VLM (paligemma),
+whose prefix comes first.
 
 Block kinds: `attn`, `local`, `enc` and `moe` (attention + the MoE
-FFN). The SSM mixers and the Zamba2 shared blocks raise
-NotImplementedError naming their ROADMAP item; `lm_loss` comes with the
-LM training slice.
+FFN), and the mixers of `models/gla.py`: `mamba2`, `mlstm`, `slstm`.
+A prefill starts each SSM block from its cache's state, as the
+reference's does, so it is given freshly zeroed caches.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import multi_head_attention
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.gla import (mamba2_apply, mamba2_cache_spec,
+                                    mlstm_apply, mlstm_cache_spec,
+                                    slstm_apply, slstm_cache_spec,
+                                    spec_mamba2, spec_mlstm, spec_slstm)
 from repro_torch.models.layers import (attention_apply, attn_cache_spec,
                                        mlp_apply, moe_apply, rmsnorm,
                                        spec_attention, spec_mlp, spec_moe,
                                        spec_rmsnorm)
 from repro_torch.models.spec import TensorSpec, stack_specs
-from repro_torch.nn.tree import tree_map
+from repro_torch.nn.tree import tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
 
 _ATTN_MLP = ("attn", "local", "enc")
 _ATTN_KINDS = _ATTN_MLP + ("moe",)
-_NOT_PORTED = {
-    "mamba2": "the SSM blocks of models/gla.py, ROADMAP A6.5",
-    "mlstm": "the SSM blocks of models/gla.py, ROADMAP A6.5",
-    "slstm": "the SSM blocks of models/gla.py, ROADMAP A6.5",
-    "shared_attn": "the Zamba2 shared blocks, ROADMAP A6.5",
-}
-# params whose every use is a matmul operand cast to the compute dtype
-# (the MoE's stacked expert weights share the dense MLP's names)
+_SSM = {"mamba2": (spec_mamba2, mamba2_cache_spec, mamba2_apply),
+        "mlstm": (spec_mlstm, mlstm_cache_spec, mlstm_apply),
+        "slstm": (spec_slstm, slstm_cache_spec, slstm_apply)}
+# params whose every use is a matmul operand (or a depthwise conv tap or
+# a gate bias) cast to the compute dtype; the MoE's stacked expert
+# weights share the dense MLP's names, the mLSTM's projections the
+# attention's, the sLSTM's output projection the Mamba2's
 _MATMUL_KEYS = frozenset(("embed", "lm_head", "wq", "wk", "wv", "wo",
-                          "wg", "wu", "wd", "router"))
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} blocks are not ported yet "
-                               f"({_NOT_PORTED[what]})")
+                          "wg", "wu", "wd", "router", "in_proj", "out_proj",
+                          "up_proj", "down_proj", "w_in", "w_gates",
+                          "b_gates", "conv_w"))
 
 
 # ----------------------------------------------------------------------
@@ -78,8 +95,8 @@ def spec_block(cfg: ArchConfig, kind: str) -> Dict:
         return {"attn": spec_attention(cfg), "mlp": spec_mlp(cfg)}
     if kind == "moe":
         return {"attn": spec_attention(cfg), "moe": spec_moe(cfg)}
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
+    if kind in _SSM:
+        return {kind: _SSM[kind][0](cfg)}
     raise ValueError(kind)
 
 
@@ -87,18 +104,12 @@ def cache_spec_block(cfg: ArchConfig, kind: str, batch: int,
                      max_seq: int) -> Dict:
     if kind in _ATTN_KINDS:
         return {"attn": attn_cache_spec(cfg, batch, max_seq, kind)}
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
+    if kind in _SSM:
+        return {kind: _SSM[kind][1](cfg, batch)}
     raise ValueError(kind)
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.shared_attn:
-        raise _not_ported("shared_attn")
-
-
 def spec_params(cfg: ArchConfig) -> Dict:
-    _check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     specs: Dict[str, Any] = {}
     if cfg.input_mode == "tokens" or cfg.num_prefix_embeddings:
@@ -110,6 +121,10 @@ def spec_params(cfg: ArchConfig) -> Dict:
     if cfg.tail:
         specs["tail"] = {f"t{i}": spec_block(cfg, k)
                          for i, k in enumerate(cfg.tail)}
+    if cfg.shared_attn:
+        specs["shared"] = {f"s{i}": {"attn": spec_attention(cfg),
+                                     "mlp": spec_mlp(cfg)}
+                           for i in range(cfg.shared_attn_count)}
     specs["final_norm"] = spec_rmsnorm(d)
     if not cfg.tie_embeddings or "embed" not in specs:
         specs["lm_head"] = TensorSpec((d, V), ("embed", "vocab"),
@@ -118,7 +133,6 @@ def spec_params(cfg: ArchConfig) -> Dict:
 
 
 def spec_caches(cfg: ArchConfig, batch: int, max_seq: int) -> Dict:
-    _check_ported(cfg)
     caches: Dict[str, Any] = {
         "groups": {f"p{i}": stack_specs(
             cache_spec_block(cfg, k, batch, max_seq), cfg.num_groups,
@@ -126,21 +140,25 @@ def spec_caches(cfg: ArchConfig, batch: int, max_seq: int) -> Dict:
     if cfg.tail:
         caches["tail"] = {f"t{i}": cache_spec_block(cfg, k, batch, max_seq)
                           for i, k in enumerate(cfg.tail)}
+    if cfg.shared_attn:
+        caches["shared"] = stack_specs(
+            attn_cache_spec(cfg, batch, max_seq, "attn"), cfg.num_groups,
+            "layers")
     return caches
 
 
 def cast_matmul_leaf(key: str, leaf: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
-    """The param leaf under `key`, cast to `dtype` if it is a matmul
-    weight (embeddings, head, attention, MLP and MoE projections, the
-    router), so a step reads it in the compute dtype instead of casting
-    an fp32 weight at every use; any other leaf unchanged."""
+    """The param leaf under `key`, cast to `dtype` if every use of it is
+    a cast to the compute dtype (`_MATMUL_KEYS`), so a step reads it in
+    the compute dtype instead of casting an fp32 weight at every use;
+    any other leaf unchanged."""
     return leaf.to(dtype) if key in _MATMUL_KEYS else leaf
 
 
 def cast_matmul_weights(params: Dict, dtype: torch.dtype) -> Dict:
     """`cast_matmul_leaf` over every leaf of `params`. The values the
-    model sees are identical; norm scales stay fp32."""
+    model sees are identical; the fp32 leaves stay fp32."""
     def walk(tree, key=None):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
@@ -153,44 +171,90 @@ def cast_matmul_weights(params: Dict, dtype: torch.dtype) -> Dict:
 # ----------------------------------------------------------------------
 def _apply_block(params, cfg: ArchConfig, kind: str, h: torch.Tensor, *,
                  positions, attn_fn, cache, decode_pos
-                 ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """One block; a MoE block's aux loss is dropped (serving reads no
-    loss)."""
-    if kind not in _ATTN_KINDS:
-        raise _not_ported(kind) if kind in _NOT_PORTED else ValueError(kind)
-    y, nc = attention_apply(
-        params["attn"], cfg, h, kind=kind, positions=positions,
-        attn_fn=attn_fn, cache=None if cache is None else cache["attn"],
-        decode_pos=decode_pos)
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block; returns (h, the MoE aux loss or None). A given cache
+    is written in place."""
+    if kind in _ATTN_KINDS:
+        y, _ = attention_apply(
+            params["attn"], cfg, h, kind=kind, positions=positions,
+            attn_fn=attn_fn, cache=None if cache is None else cache["attn"],
+            decode_pos=decode_pos)
+        h = h + y
+        if kind == "moe":
+            y2, aux = moe_apply(params["moe"], cfg, h)
+            return h + y2, aux
+        return h + mlp_apply(params["mlp"], cfg, h), None
+    if kind not in _SSM:
+        raise ValueError(kind)
+    y, nc = _SSM[kind][2](params[kind], cfg, h,
+                          cache=None if cache is None else cache[kind],
+                          decode=decode_pos is not None)
+    if cache is not None:
+        for name, t in nc.items():
+            cache[kind][name].copy_(t)
+    return h + y, None
+
+
+def _apply_shared(shared_params, cfg: ArchConfig, h: torch.Tensor,
+                  gidx: int, *, positions, attn_fn, cache, decode_pos
+                  ) -> torch.Tensor:
+    """Zamba2 shared block after group `gidx`: attention + MLP with the
+    weights `s{gidx % shared_attn_count}`; a given cache (this
+    invocation's slot) is written in place."""
+    p = shared_params[f"s{gidx % cfg.shared_attn_count}"]
+    y, _ = attention_apply(p["attn"], cfg, h, kind="attn",
+                           positions=positions, attn_fn=attn_fn,
+                           cache=cache, decode_pos=decode_pos)
     h = h + y
-    if kind == "moe":
-        h = h + moe_apply(params["moe"], cfg, h)[0]
-    else:
-        h = h + mlp_apply(params["mlp"], cfg, h)
-    return h, None if cache is None else {"attn": nc}
+    return h + mlp_apply(p["mlp"], cfg, h)
 
 
 def _run_body(params, cfg: ArchConfig, h: torch.Tensor, *, positions,
-              attn_fn, caches: Optional[Tree], decode_pos
-              ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Every group of the pattern, then the tail. Each block gets views
-    of its group's slice of the stacked params and caches, so cache
-    writes land in the stacked tensors; returns (h, caches)."""
-    _check_ported(cfg)
-    for g in range(cfg.num_groups):
+              attn_fn, caches: Optional[Tree], decode_pos,
+              remat: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every group of the pattern (each followed by the shared block,
+    if any), then the tail. Each block gets views of its group's slice
+    of the stacked params and caches, so cache writes land in the
+    stacked tensors. With `remat` (and no caches) each group runs under
+    `torch.utils.checkpoint`. Returns (h, the summed MoE aux loss)."""
+    kw = dict(positions=positions, attn_fn=attn_fn, decode_pos=decode_pos)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    # each stacked param leaf split once into its group slices: the
+    # backward then stacks the slices' grads in one op, where indexing
+    # t[g] per group would add num_groups full-size zero-padded grads
+    slices = [t.unbind(0) for t in tree_leaves(params["groups"])]
+
+    def group(g: int, hh: torch.Tensor):
+        aux = zero
+        gp = tree_unflatten(params["groups"], [s[g] for s in slices])
         for i, kind in enumerate(cfg.pattern):
-            gp = tree_map(lambda t: t[g], params["groups"][f"p{i}"])
             gc = None if caches is None else tree_map(
                 lambda t: t[g], caches["groups"][f"p{i}"])
-            h, _ = _apply_block(gp, cfg, kind, h, positions=positions,
-                                attn_fn=attn_fn, cache=gc,
-                                decode_pos=decode_pos)
+            hh, a = _apply_block(gp[f"p{i}"], cfg, kind, hh, cache=gc,
+                                 **kw)
+            if a is not None:
+                aux = aux + a
+        if cfg.shared_attn:
+            sc = None if caches is None else tree_map(lambda t: t[g],
+                                                      caches["shared"])
+            hh = _apply_shared(params["shared"], cfg, hh, g, cache=sc, **kw)
+        return hh, aux
+
+    aux = zero
+    for g in range(cfg.num_groups):
+        if remat and caches is None:
+            h, a = checkpoint(group, g, h, use_reentrant=False)
+        else:
+            h, a = group(g, h)
+        aux = aux + a
     for i, kind in enumerate(cfg.tail):
         c = None if caches is None else caches["tail"][f"t{i}"]
-        h, _ = _apply_block(params["tail"][f"t{i}"], cfg, kind, h,
-                            positions=positions, attn_fn=attn_fn, cache=c,
-                            decode_pos=decode_pos)
-    return h, caches
+        h, a = _apply_block(params["tail"][f"t{i}"], cfg, kind, h, cache=c,
+                            **kw)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
@@ -213,18 +277,105 @@ def _head_weight(params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T
 
 
+def _fp32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 h @ w from compute-dtype operands: w rounded to h's dtype,
+    both upcast (exact) and multiplied in fp32."""
+    return h.float() @ w.to(h.dtype).float()
+
+
 def _head(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """fp32 h @ head from compute-dtype operands (h (..., d))."""
-    w = _head_weight(params, cfg).to(h.dtype)
-    return h.float() @ w.float()
+    return _fp32_product(h, _head_weight(params, cfg))
+
+
+def _softcap(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
 
 
 def _logits(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits of h (B, d), softcapped where the arch says so."""
-    logits = _head(params, cfg, h)
-    if cfg.logit_softcap:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return _softcap(cfg, _head(params, cfg, h))
+
+
+# ----------------------------------------------------------------------
+# training loss (chunked softmax CE)
+# ----------------------------------------------------------------------
+def _targets(cfg: ArchConfig, batch: Dict, B: int, S: int, device
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(targets (B, S) int64, mask (B, S) fp32): next-token for LMs (the
+    last position and a VLM's prefix masked out), frame-aligned for
+    encoders."""
+    if cfg.input_mode == "embeddings":
+        targets = batch["targets"].long()
+        return targets, torch.ones(targets.shape, device=device)
+    tok = batch["tokens"].long()
+    T = tok.shape[1]
+    targets = torch.cat([tok[:, 1:], tok.new_zeros((B, 1))], 1)
+    mask = torch.cat([torch.ones((B, T - 1), device=device),
+                      torch.zeros((B, 1), device=device)], 1)
+    npfx = S - T
+    if npfx:
+        targets = torch.cat([tok.new_zeros((B, npfx)), targets], 1)
+        mask = torch.cat([torch.zeros((B, npfx), device=device), mask], 1)
+    return targets, mask
+
+
+def _ce_chunk(cfg: ArchConfig, hc: torch.Tensor, tc: torch.Tensor,
+              mc: torch.Tensor, w: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ masked NLL, Σ masked correct) of one chunk: fp32 logits from
+    compute-dtype operands, softcapped; argmax takes the first maximum,
+    as jax's does."""
+    logits = _softcap(cfg, _fp32_product(hc, w))
+    logp = torch.log_softmax(logits, -1)
+    nll = -logp.gather(-1, tc[..., None])[..., 0]
+    correct = (logits.argmax(-1) == tc).float()
+    return (nll * mc).sum(), (correct * mc).sum()
+
+
+def lm_loss(params, cfg: ArchConfig, batch: Dict, *,
+            attn_fn: Callable = multi_head_attention, remat: bool = True,
+            loss_chunk: int = 512, moe_aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token (or frame) cross-entropy, plus the MoE aux term
+    weighted by `moe_aux_weight` per group. Returns (loss, metrics:
+    "ce", "acc", "tokens", and "moe_aux" for MoE archs). The sequence is
+    cut into `loss_chunk`-long pieces (the last zero-padded and masked);
+    each runs under `torch.utils.checkpoint`, so the backward recomputes
+    its logits."""
+    h = _embed_inputs(params, cfg, batch)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)
+    h, aux = _run_body(params, cfg, h, positions=positions, attn_fn=attn_fn,
+                       caches=None, decode_pos=None, remat=remat)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    targets, mask = _targets(cfg, batch, B, S, h.device)
+
+    w = _head_weight(params, cfg)
+    cl = min(loss_chunk, S)
+    loss_sum = acc_sum = torch.zeros((), device=h.device)
+    for start in range(0, S, cl):
+        sl = slice(start, start + cl)
+        hc, tc, mc = h[:, sl], targets[:, sl], mask[:, sl]
+        pad = cl - hc.shape[1]
+        if pad:
+            hc = torch.cat([hc, hc.new_zeros((B, pad, hc.shape[2]))], 1)
+            tc = torch.cat([tc, tc.new_zeros((B, pad))], 1)
+            mc = torch.cat([mc, mc.new_zeros((B, pad))], 1)
+        nll, correct = checkpoint(_ce_chunk, cfg, hc, tc, mc, w,
+                                  use_reentrant=False)
+        loss_sum = loss_sum + nll
+        acc_sum = acc_sum + correct
+
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = loss_sum / denom
+    metrics = {"ce": loss, "acc": acc_sum / denom, "tokens": denom}
+    if cfg.num_experts:
+        loss = loss + moe_aux_weight * aux / cfg.num_groups
+        metrics["moe_aux"] = aux
+    return loss, metrics
 
 
 def encode(params, cfg: ArchConfig, batch: Dict, *,
@@ -250,8 +401,8 @@ def prefill(params, cfg: ArchConfig, batch: Dict, caches: Tree, *,
     Returns (last-position logits (B, V) fp32, caches)."""
     h = _embed_inputs(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, caches = _run_body(params, cfg, h, positions=positions,
-                          attn_fn=attn_fn, caches=caches, decode_pos=None)
+    h, _ = _run_body(params, cfg, h, positions=positions, attn_fn=attn_fn,
+                     caches=caches, decode_pos=None)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 
@@ -270,7 +421,7 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor,
     if cfg.emb_scale_by_sqrt_dim:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
     positions = torch.arange(pos, pos + 1, device=h.device)
-    h, caches = _run_body(params, cfg, h, positions=positions,
-                          attn_fn=None, caches=caches, decode_pos=pos)
+    h, _ = _run_body(params, cfg, h, positions=positions, attn_fn=None,
+                     caches=caches, decode_pos=pos)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h[:, 0]), caches

@@ -26,6 +26,13 @@ def tree_leaves(tree: Tree) -> List[Any]:
     return [tree]
 
 
+def tree_unflatten(tree: Tree, leaves) -> Tree:
+    """A tree of `tree`'s structure holding `leaves`, taken in
+    `tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """fn over corresponding leaves of `tree` and `rest` (same
     structure), rebuilt in `tree`'s structure; leaves are visited in

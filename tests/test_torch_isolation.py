@@ -18,6 +18,12 @@ import torch
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro\.)")
+NEW_MODULES = ("repro_torch.models.gla", "repro_torch.launch.train",
+               "repro_torch.data.tokens",
+               "repro_torch.data.clustered_batching",
+               "repro_torch.dist.sharding",
+               "repro_torch.configs.xlstm_1_3b",
+               "repro_torch.configs.zamba2_7b")
 
 
 def test_no_source_line_imports_jax_or_the_reference():
@@ -42,6 +48,8 @@ def test_every_module_imports_without_jax_or_the_reference(tmp_path):
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        for name in {NEW_MODULES!r}:         # the LM training slice's
+            assert name in names, name
         loaded = [m for m in sys.modules
                   if (m == "jax" or m.startswith(("jax.", "repro.")))
                   and sys.modules[m] is not None]

@@ -444,3 +444,70 @@ def test_serve_cli_on_gpu_launches_once_per_layer_in_prefill(cuda):
     assert out["launches"] == {"prefill": 2, "decode": 0}
     assert torch.isfinite(out["prefill_logits"]).all()
     assert out["tokens"].shape == (2, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=48, softcap=30.0),
+                                dict(causal=False)])
+def test_flash_gradient_matches_autograd_of_the_plain_version(cuda, kw,
+                                                              dtype):
+    """Under autograd the kernel's forward runs (one launch) and the
+    backward is the VJP of `blocked_attention`: its q, k, v gradients
+    against autograd of the plain version on the same CUDA inputs,
+    within the forward's tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import multi_head_attention_ref
+    g = torch.Generator().manual_seed(3)
+    shapes = ((2, 4, 160, 64), (2, 2, 160, 64), (2, 2, 160, 64))
+    base = [torch.randn(s, generator=g).to(cuda, dtype) for s in shapes]
+    ct = torch.randn(shapes[0], generator=g).to(cuda, dtype)
+    a = [t.clone().requires_grad_(True) for t in base]
+    before = fa.LAUNCHES
+    out = fa.flash_attention(*a, **kw)
+    got = torch.autograd.grad(out, a, ct)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    b = [t.clone().requires_grad_(True) for t in base]
+    want = torch.autograd.grad(multi_head_attention_ref(*b, **kw), b, ct)
+    for x, w in zip(got, want):
+        assert x.dtype == dtype
+        err = float((x.float() - w.float()).abs().max())
+        assert err <= TOL[dtype] * max(1.0, float(w.float().abs().max()))
+
+
+def test_lm_training_step_on_gpu_matches_cpu(cuda):
+    """One `make_train_step` of SMOKE llama3.2-1b in fp32 with remat and
+    2 microbatches: the flash forward inside autograd (2 launches per
+    layer and microbatch: forward and the remat recompute) and the
+    metrics and params against the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import CellPolicy
+    from repro_torch.dist.steps import make_train_step, spec_train_state
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.spec import init_tree
+    from repro_torch.nn.optim import adamw
+    from repro_torch.nn.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_arch("llama3.2-1b", smoke=True),
+                              compute_dtype="float32")
+    state = init_tree(spec_train_state(cfg),
+                      torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 64),
+                         generator=torch.Generator().manual_seed(1))
+    step = make_train_step(cfg, CellPolicy(microbatches=2, loss_chunk=32),
+                           adamw(1e-3, clip_norm=1.0))
+    out = {}
+    for dev in ("cpu", cuda):
+        before = fa.LAUNCHES
+        new, metrics = step(tree_map(lambda t: t.to(dev), state),
+                            {"tokens": toks.to(dev)})
+        out[str(dev)] = (new, {k: float(v) for k, v in metrics.items()},
+                         fa.LAUNCHES - before)
+    assert out["cpu"][2] == 0 and out["cuda"][2] == 2 * 2 * cfg.num_layers
+    for key, want in out["cpu"][1].items():
+        assert abs(out["cuda"][1][key] - want) <= 1e-4 * max(1.0, abs(want))
+    for got, want in zip(tree_leaves(out["cuda"][0]["mu"]),
+                         tree_leaves(out["cpu"][0]["mu"])):
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max()))

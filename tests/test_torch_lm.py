@@ -267,9 +267,12 @@ def test_decode_attention_matches_reference(window, softcap):
 # configs, specs, conversions
 # ----------------------------------------------------------------------
 def test_registry_matches_reference_for_ported_archs():
+    from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
     assert ARCH_NAMES == ("llama3.2-1b", "gemma3-1b", "granite-3-2b",
                           "internlm2-20b", "granite-moe-1b-a400m",
-                          "dbrx-132b", "hubert-xlarge", "paligemma-3b")
+                          "dbrx-132b", "hubert-xlarge", "paligemma-3b",
+                          "xlstm-1.3b", "zamba2-7b")
+    assert sorted(ARCH_NAMES) == sorted(REF_ARCH_NAMES)
     for smoke in (False, True):
         ref, port = ref_get_arch("llama3.2-1b", smoke), \
             get_arch("llama3.2-1b", smoke)
@@ -283,8 +286,12 @@ def test_registry_matches_reference_for_ported_archs():
 
 @pytest.mark.parametrize("name", ["xlstm-1.3b", "zamba2-7b"])
 def test_later_archs_raise_naming_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A6\.5"):
-        get_arch(name)
+    """The SSM archs, the last of the reference's, are ported (ROADMAP
+    A6.5): the registry returns the reference's configs; only an
+    unknown name raises."""
+    for smoke in (False, True):
+        assert dataclasses.asdict(get_arch(name, smoke)) == \
+            dataclasses.asdict(ref_get_arch(name, smoke))
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
@@ -293,9 +300,26 @@ def test_later_archs_raise_naming_their_roadmap_item(name):
     (dict(pattern=("mamba2",)), "SSM"),
     (dict(pattern=("attn",), shared_attn=True), "shared")])
 def test_unported_blocks_raise(kw, match):
+    """The SSM blocks and the Zamba2 shared blocks are ported (ROADMAP
+    A6.5): their param trees are the reference's, leaf for leaf; an
+    unknown block kind raises."""
     cfg = ArchConfig(**dict(FEATURES, num_layers=1, tail=(), **kw))
-    with pytest.raises(NotImplementedError, match=match):
-        lm.spec_params(cfg)
+    ref_cfg = RefArchConfig(**dict(FEATURES, num_layers=1, tail=(), **kw))
+    got = dict((k, s.shape) for k, s in _spec_leaves(lm.spec_params(cfg)))
+    want = dict((k, s.shape) for k, s in _spec_leaves(
+        ref_lm.spec_params(ref_cfg)))
+    assert got == want
+    with pytest.raises(ValueError):
+        lm.spec_params(ArchConfig(**dict(FEATURES, num_layers=1, tail=(),
+                                         pattern=("no-such-kind",))))
+
+
+def _spec_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
 
 
 def test_specs_match_reference_shapes_and_counts():
