@@ -212,6 +212,34 @@ this script. Phases, each of which must pass (no failure is caught):
    gradient alone with no AdamW state); each cut printed: finite loss
    and gradient norm, flash launches as the arch implies.
 
+17. The sharding layer. (a) `make_train_step` with a DeviceMesh: an NCCL
+   world of 1 in this process, a 1 x 1 ("data", "model") mesh, FSDP on,
+   every state leaf a DTensor (`dist.sharding.distribute_tree`), the
+   flash kernel under `local_map` on the local shards. llama3.2-1b at
+   full width (2048, 32/8 heads, vocab 128256), cut to 2 layers, B 2 x
+   256: one step sharded and one unsharded from the same state and batch
+   (AdamW without clipping, so the first moment is 0.1 x the gradient),
+   in fp32 (loss, every gradient leaf and the new params within
+   1e-4·max(1, max|g|)) and in bf16 (within twice the bf16 floor: the
+   unsharded bf16 step against the unsharded fp32 one); the sharded
+   step's flash launches counted from 0 (2 layers x forward and remat
+   recompute). Then the bf16 step at 4 layers, B 2 x 2048, unsharded
+   and sharded in turns (plain, sharded, sharded, plain): step ms, peak
+   memory, and each sharded run's flash launches counted from 0 (4
+   layers x 2 x the steps). (b) `launch/train.py --mesh host` under
+   `torchrun --nproc_per_node 1` (NCCL, a (1, 1) mesh) for 2 steps.
+   (c) Once (a) is done, beside (b), on the host's CPU (no card
+   visible), `launch/dryrun.py --arch llama3.2-1b --shape train_4k
+   --mesh pod` and `launch/dryrun_gcn.py --variant all`
+   on a fake world of 256 ranks: per-device FLOPs, bytes, collective
+   bytes, peak bytes and the roofline time at the H100 constants of
+   `launch/mesh.py`; the GCN `base` variant within 2% of the reference's
+   1-device step (1.5356e11 FLOP) with one gradient all-reduce, `tp`
+   below it.
+Phase 7 also times the fp32 kernel at the llama3.2-1b prefill shape
+(phase 8's fp32 prefill launches it) against its bound, its plain
+version and fp32 SDPA.
+
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
 per-kernel numbers (`{"kernels": [...]}`), and `{"ok": true, "device":
@@ -306,6 +334,20 @@ TRAIN_GRAD_BF16 = dict(batch=2, seq=2048, loss_chunk=512)
 # the gradient alone, without AdamW state (≈8 bytes a param)
 TRAIN_OTHER = dict(batch=2, seq=512)
 TRAIN_CUT_PARAMS = 1.8e9
+# phase 17: the sharding layer. (a) llama3.2-1b at full width, its depth
+# cut to 2 layers for the parity copies (fp32 and bf16 states and their
+# updates, sharded and not, side by side) and to 4 for the timed bf16
+# steps; (b) the CLI under torchrun; (c) the dry-runs on the host's CPU
+SHARD_PARITY = dict(layers=2, batch=2, seq=256)
+SHARD_TIMED = dict(layers=4, batch=2, seq=2048, steps=4)
+SHARD_CLI = ["--arch", "llama3.2-1b", "--mesh", "host", "--steps", "2",
+             "--batch", "2", "--seq", "512", "--log-every", "1",
+             "--seed", "0"]
+SHARD_TIMEOUT_S = 300
+# the reference's own 1-device Cluster-GCN step at the PPI-SOTA shape:
+# `analyze_hlo` of `repro.launch.dryrun_gcn.build("base")` on a 1 x 1
+# mesh (jax 0.9, CPU); the port's per-device count on 16 x 16 matches it
+GCN_REF_FLOPS = 1.5356e11
 
 
 def _smi() -> str:
@@ -1050,7 +1092,9 @@ def phase_flash(results: dict) -> dict:
               ((1, 4, 2, 1000, 1000, 128), bf16, dict(causal=False), False),
               ((2, 32, 8, 1000, 1000, 64), bf16, causal, True)]
     cases.append((tuple(FLASH_MAIN.values()), bf16, causal, False))
-    main = None
+    # the fp32 kernel at the same shape: phase 8's fp32 prefill runs it
+    cases.append((tuple(FLASH_MAIN.values()), torch.float32, causal, False))
+    main = main_fp32 = None
     for n, (shape, dtype, kw, strided) in enumerate(cases):
         B, Hq, Hkv, Tq, Tk, D = shape
         q, k, v = _flash_inputs(*shape, dtype, seed=n, strided=strided)
@@ -1084,7 +1128,10 @@ def phase_flash(results: dict) -> dict:
             row["library_ms"] = _time_ms(library, reps)
             row["library_max_abs_err_vs_plain"] = float(
                 (lib.float() - ref.float()).abs().max())
-            main = row
+            if dtype == bf16:
+                main = row
+            else:
+                main_fp32 = row
         _check_case("flash_attention", row, err, scale, dname)
         results["flash_cases"].append(row)
         print(f"[flash] B={B} Hq={Hq:>2}/{Hkv} Tq={Tq:>4} Tk={Tk:>4} D={D:>3} "
@@ -1103,6 +1150,15 @@ def phase_flash(results: dict) -> dict:
           f"of the {main['bound_ms']:.4f} ms bound; plain "
           f"{main['plain_ms']:.4f} ms; sdpa {main['library_ms']:.4f} ms "
           f"(kernel / sdpa = {main['vs_library']:.2f})")
+    m32 = main_fp32
+    m32["bound_share"] = m32["bound_ms"] / m32["ms"]
+    m32["vs_library"] = m32["ms"] / m32["library_ms"]
+    results["flash_main_fp32"] = m32
+    print(f"[flash] prefill shape, fp32 kernel: {m32['ms']:.4f} ms, "
+          f"{100 * m32['bound_share']:.1f}% of the {m32['bound_ms']:.4f} ms "
+          f"bound ({m32['bound_by']}); plain {m32['plain_ms']:.4f} ms; sdpa "
+          f"fp32 {m32['library_ms']:.4f} ms (kernel / sdpa = "
+          f"{m32['vs_library']:.2f})")
     return main
 
 
@@ -2806,6 +2862,356 @@ def phase_lm_train(results: dict, smi: str, work: pathlib.Path) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 17: the sharding layer
+# ----------------------------------------------------------------------
+def _moment_grads(state) -> list:
+    """The gradient leaves of a state after one AdamW step from zero
+    moments without clipping: mu = (1 - b1)·g."""
+    from repro_torch.nn.tree import tree_leaves
+    return [(m.full_tensor() if hasattr(m, "full_tensor") else m)
+            .float().cpu() / 0.1 for m in tree_leaves(state["mu"])]
+
+
+def _shard_pair(cfg, mesh, batch: dict, layers_cut: str) -> dict:
+    """One step of `make_train_step` sharded (FSDP on the mesh) and
+    unsharded from the same state and batch: loss, the gradients
+    (through AdamW's first moment), the new params, flash launches."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
+                                           make_rules, shardings_for)
+    from repro_torch.dist.steps import make_train_step, spec_train_state
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.spec import init_tree
+    from repro_torch.nn.optim import adamw
+    from repro_torch.nn.tree import tree_leaves
+
+    B, S = batch["tokens"].shape
+    policy = CellPolicy(fsdp=True, microbatches=1, remat=True, loss_chunk=S)
+    opt = adamw(1e-3, weight_decay=0.01)          # no clipping: mu = 0.1 g
+    specs = spec_train_state(cfg)
+    state = init_tree(specs, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")
+    plain_state, plain_m = make_train_step(
+        cfg, dataclasses.replace(policy, fsdp=False), opt)(state, batch)
+    plain = dict(loss=float(plain_m["loss"]), grads=_moment_grads(
+        plain_state), params=[t.float().cpu() for t in tree_leaves(
+            plain_state["params"])])
+    del plain_state
+    rules = make_rules(mesh, cfg, ShapeConfig("t", "train", S, B), policy)
+    dstate = distribute_tree(state, shardings_for(specs, mesh, rules))
+    del state
+    step = make_train_step(cfg, policy, opt,
+                           act_spec=(rules["batch"], None, None), mesh=mesh)
+    torch.cuda.synchronize()
+    # --- the main path: the launch counts start at 0 -------------------
+    _zero_counts()
+    new, metrics = step(dstate, batch)
+    torch.cuda.synchronize()
+    n = _counts()
+    # ---------------------------------------------------------------------
+    all_dt = all(isinstance(t, DTensor) for t in tree_leaves(new))
+    sharded = dict(loss=float(metrics["loss"]), grads=_moment_grads(new),
+                   params=[t.full_tensor().float().cpu()
+                           for t in tree_leaves(new["params"])])
+    del new, dstate
+    torch.cuda.empty_cache()
+    return dict(cut=layers_cut, plain=plain, sharded=sharded,
+                all_dtensor=all_dt, launches=n,
+                loss_rel=abs(sharded["loss"] - plain["loss"])
+                / abs(plain["loss"]),
+                grad_rel=_grad_rel(sharded["grads"], plain["grads"]),
+                params_rel=_grad_rel(sharded["params"], plain["params"]))
+
+
+def _shard_timed(cfg, mesh, smi: str) -> dict:
+    """Step seconds (median after the first) and peak memory of the bf16
+    step at SHARD_TIMED's shape, unsharded and sharded, in turns; the
+    flash launches of each sharded run, counted from 0 (the host runs
+    nothing else meanwhile)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
+                                           make_rules, shardings_for)
+    from repro_torch.dist.steps import make_train_step, spec_train_state
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.spec import init_tree
+    from repro_torch.nn.optim import adamw
+
+    T = SHARD_TIMED
+    policy = CellPolicy(fsdp=True, microbatches=1, remat=True,
+                        loss_chunk=512)
+    specs = spec_train_state(cfg)
+    rules = make_rules(mesh, cfg, ShapeConfig("t", "train", T["seq"],
+                                              T["batch"]), policy)
+    batch = {"tokens": torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, T["batch"], T["seq"], seed=0).batch_at(0)[
+            "tokens"]).cuda()}
+    opt = adamw(1e-3, weight_decay=0.01, clip_norm=1.0)
+    out = {}
+    for kind in ("plain", "sharded", "sharded", "plain"):
+        start = _reset_peak_memory()
+        state = init_tree(specs, torch.Generator(device="cuda")
+                          .manual_seed(0), "cuda")
+        if kind == "sharded":
+            state = distribute_tree(state, shardings_for(specs, mesh, rules))
+            step = make_train_step(cfg, policy, opt, act_spec=(
+                rules["batch"], None, None), mesh=mesh)
+        else:
+            step = make_train_step(cfg, dataclasses.replace(
+                policy, fsdp=False), opt)
+        secs, losses = [], []
+        torch.cuda.synchronize()
+        # --- the main path (sharded runs): the counts start at 0 -------
+        _zero_counts()
+        for _ in range(T["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))        # ends synchronised
+            secs.append(time.perf_counter() - t0)
+        n = _counts()
+        # -----------------------------------------------------------------
+        del state
+        row = out.setdefault(kind, dict(step_s=[], peak_gib=[], loss=[],
+                                        launches=[]))
+        row["launches"].append(n)
+        row["step_s"].append(float(np.median(secs[1:])))
+        row["peak_gib"].append(_peak_memory(start)["peak_gib"])
+        row["loss"].append(losses)
+        torch.cuda.empty_cache()
+    for kind, row in out.items():
+        print(f"[shard] 17a timed bf16 step ({T['layers']} of 16 layers, "
+              f"full width, B {T['batch']} x {T['seq']}, remat), {kind}: "
+              f"{' and '.join(f'{x * 1e3:.1f}' for x in row['step_s'])} ms "
+              f"(median after the first of {T['steps']}), peak "
+              f"{' and '.join(f'{x:.2f}' for x in row['peak_gib'])} GiB, "
+              f"loss {row['loss'][0][0]:.4f}, flash launches "
+              f"{' and '.join(str(n[0]) for n in row['launches'])}  ({smi})")
+    # forward and remat recompute of every layer, every step, bf16 kernel
+    expect = T["layers"] * 2 * T["steps"]
+    out["launches_expected"] = expect
+    if not (all(np.isfinite(x) for r in (out["plain"], out["sharded"])
+                for l_ in r["loss"] for x in l_)
+            and all(n == (expect, expect, 0, 0)
+                    for n in out["sharded"]["launches"])):
+        raise AssertionError(f"timed steps: {out}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def _shard_cli(smi: str) -> dict:
+    """17b: `launch/train.py --mesh host` under torchrun, one rank."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_addr", "127.0.0.1", "--master_port",
+           str(_free_port()), "-m", "repro_torch.launch.train", *SHARD_CLI]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=SHARD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    mesh_line = [line for line in out.stdout.splitlines()
+                 if "params, mesh" in line]
+    res = dict(rc=out.returncode, seconds=seconds, steps=rows,
+               mesh=mesh_line)
+    print(f"[shard] 17b torchrun --nproc_per_node 1 launch.train "
+          f"{' '.join(SHARD_CLI)}: rc {out.returncode} in {seconds:.1f} s; "
+          f"{mesh_line[0].strip() if mesh_line else 'no mesh line'}; loss "
+          + " ".join(f"{r['loss']:.4f}" for r in rows) + f"  ({smi})")
+    import math as _m
+    if not (out.returncode == 0 and [r["step"] for r in rows] == [1, 2]
+            and all(_m.isfinite(r["loss"]) for r in rows)
+            and mesh_line and "{'data': 1, 'model': 1} on cuda"
+            in mesh_line[0]):
+        raise AssertionError(f"train --mesh host under torchrun: {res}\n"
+                             f"{out.stderr[-3000:]}")
+    return res
+
+
+def _dryrun_start(args: list):
+    """Start a dry-run CLI on the host's CPU (no card visible to it), so
+    it runs beside the card's work; `_dryrun_finish` reads it back."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return (args, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env))
+
+
+def _dryrun_finish(started, records: list) -> list:
+    """Wait for a started dry-run (killed past SHARD_TIMEOUT_S) and read
+    back its records (paths under results/dryrun_torch)."""
+    args, t0, proc = started
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, SHARD_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    seconds = time.perf_counter() - t0
+    for line in out.splitlines():
+        print(f"[shard]   {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{args}: rc {proc.returncode}\n{err[-3000:]}")
+    base = ROOT / "results" / "dryrun_torch"
+    recs = [json.loads((base / r).read_text()) for r in records]
+    for r in recs:
+        r["cli_seconds"] = seconds
+    return recs
+
+
+def _shard_step(smi: str) -> dict:
+    """17a: the sharded train step on a 1 x 1 mesh over an NCCL world of
+    1 against the unsharded one (fp32, bf16), then the timed bf16 step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    full = get_arch("llama3.2-1b")
+    P = SHARD_PARITY
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        cut = f"{P['layers']} of {full.num_layers} layers, full width"
+        batch = {"tokens": torch.from_numpy(TokenPipeline(
+            full.vocab_size, P["batch"], P["seq"], seed=1).batch_at(0)[
+                "tokens"]).cuda()}
+        pairs = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(full, num_layers=P["layers"],
+                                      compute_dtype=dt)
+            pairs[dt] = _shard_pair(cfg, mesh, batch, cut)
+        f32, b16 = pairs["float32"], pairs["bfloat16"]
+        floor = _grad_rel(b16["plain"]["grads"], f32["plain"]["grads"])
+        loss_floor = abs(b16["plain"]["loss"] - f32["plain"]["loss"]) \
+            / abs(f32["plain"]["loss"])
+        per_step = P["layers"] * 2            # forward and remat recompute
+        a = dict(cut=cut, shape=f"B {P['batch']} x {P['seq']}",
+                 fp32={k: f32[k] for k in ("loss_rel", "grad_rel",
+                                           "params_rel", "all_dtensor",
+                                           "launches")},
+                 bf16={k: b16[k] for k in ("loss_rel", "grad_rel",
+                                           "params_rel", "all_dtensor",
+                                           "launches")},
+                 bf16_floor=floor, bf16_bound=2 * floor,
+                 bf16_loss_floor=loss_floor,
+                 launches_expected=per_step)
+        for dt, r in (("fp32", a["fp32"]), ("bf16", a["bf16"])):
+            print(f"[shard] 17a sharded step (NCCL world of 1, mesh 1 x 1, "
+                  f"FSDP, every state leaf a DTensor: {r['all_dtensor']}) vs "
+                  f"unsharded, llama3.2-1b {cut}, {a['shape']}, {dt}: loss "
+                  f"rel {r['loss_rel']:.3e}, grads {r['grad_rel']:.3e}, new "
+                  f"params {r['params_rel']:.3e} (bound "
+                  + (f"{STEP_TOL}·max(1, max|g|)" if dt == "fp32" else
+                     f"2 x the bf16 floor = {a['bf16_bound']:.3e}, loss "
+                     f"{2 * loss_floor:.3e}")
+                  + f"); flash launches {r['launches'][0]} (sm90 "
+                  f"{r['launches'][1]}; {per_step} expected)  ({smi})")
+        ok32 = (f32["all_dtensor"] and f32["loss_rel"] <= STEP_TOL
+                and f32["grad_rel"] <= STEP_TOL
+                and f32["params_rel"] <= STEP_TOL
+                and f32["launches"] == (per_step, 0, 0, 0))
+        ok16 = (b16["all_dtensor"] and b16["grad_rel"] <= 2 * floor
+                and b16["loss_rel"] <= 2 * loss_floor
+                and b16["launches"] == (per_step, per_step, 0, 0))
+        if not (ok32 and ok16):
+            raise AssertionError(f"sharded train step: {a}")
+        del pairs, f32, b16
+        torch.cuda.empty_cache()
+        cfg_t = dataclasses.replace(full, num_layers=SHARD_TIMED["layers"])
+        a["timed"] = _shard_timed(cfg_t, mesh, smi)
+        return a
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def phase_shard(results: dict, smi: str) -> dict:
+    """Phase 17: the sharded train step on the card (a), the CLI's
+    `--mesh host` under torchrun (b), the dry-runs on the host (c);
+    returns the flash launches of (a)'s sharded steps."""
+    from repro_torch.launch.mesh import (HARDWARE, HBM_BW, NVLINK_BW,
+                                         PEAK_FLOPS_BF16)
+
+    out = {}
+    out["sharded_step"] = _shard_step(smi)
+    # (c) starts once (a)'s timed steps are done: the dry-runs use the
+    # host's CPU only, so they run beside (b) and time nothing of it
+    t_dry = time.perf_counter()
+    dry_lm = _dryrun_start(["repro_torch.launch.dryrun", "--arch",
+                            "llama3.2-1b", "--shape", "train_4k", "--mesh",
+                            "pod", "--force"])
+    dry_gcn = _dryrun_start(["repro_torch.launch.dryrun_gcn", "--variant",
+                             "all"])
+    try:
+        out["cli"] = _shard_cli(smi)
+    except BaseException:
+        for _, _, proc in (dry_lm, dry_gcn):
+            proc.kill()
+            proc.communicate()
+        raise
+
+    lm = _dryrun_finish(dry_lm, ["llama3.2-1b__train_4k__pod__baseline.json"])
+    gcn_variants = ("base", "bf16", "ax", "tp", "q4", "sparse", "sparsek")
+    gcn = _dryrun_finish(dry_gcn, [
+        f"clustergcn-ppi-sota__train_cluster__pod__{v}.json"
+        for v in gcn_variants])
+    dry_s = time.perf_counter() - t_dry
+    rows = []
+    for rec in lm + gcn:
+        r = rec["roofline"]
+        row = dict(what=f"{rec['arch']} {rec['shape']} {rec['tag']}",
+                   status=rec["status"], flops=rec["flops_per_device"],
+                   bytes=rec["bytes_accessed_per_device"],
+                   collective_bytes=r["collective_bytes"],
+                   collectives=rec["collectives"],
+                   peak_bytes=rec["memory"]["peak_memory_in_bytes"],
+                   roofline=r, trace_s=rec.get("trace_s"))
+        rows.append(row)
+        print(f"[shard] 17c dry-run {row['what']} on the (16, 16) mesh, per "
+              f"device: {row['flops']:.4e} FLOP, {row['bytes']:.4e} B, "
+              f"collectives {row['collective_bytes']:.4e} B "
+              f"({', '.join(f'{k} x{int(v['count'])}' for k, v in rec['collectives'].items())}), "
+              f"peak {row['peak_bytes'] / 2**30:.2f} GiB; roofline at "
+              f"{HARDWARE} constants ({PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s "
+              f"bf16, {HBM_BW / 1e12:.2f} TB/s, NVLink "
+              f"{NVLINK_BW / 1e9:.0f} GB/s): {r['bound_s'] * 1e3:.3f} ms "
+              f"(compute {r['compute_s'] * 1e3:.3f}, memory "
+              f"{r['memory_s'] * 1e3:.3f}, collectives "
+              f"{r['collective_s'] * 1e3:.3f})")
+    base = gcn[0]
+    n_ar = base["collectives"].get("all-reduce", {}).get("count")
+    ratio = base["flops_per_device"] / GCN_REF_FLOPS
+    print(f"[shard] 17c gcn base: {ratio:.4f} x the reference's 1-device "
+          f"step ({GCN_REF_FLOPS:.4e} FLOP, jax 0.9 on the CPU); "
+          f"{n_ar} gradient all-reduce; dry-runs took {dry_s:.1f} s beside "
+          f"(b)")
+    if not (all(r["status"] == "ok" for r in lm + gcn) and n_ar == 1
+            and abs(ratio - 1) <= 0.02
+            and gcn[3]["flops_per_device"] < base["flops_per_device"]):
+        raise AssertionError(f"dry-runs: {rows}")
+    out["dryrun"] = dict(rows=rows, seconds=dry_s, gcn_ref_ratio=ratio)
+    results["shard"] = out
+    a = out["sharded_step"]
+    return a["fp32"]["launches"][0] + a["bf16"]["launches"][0] \
+        + sum(n[0] for n in a["timed"]["sharded"]["launches"])
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":
@@ -2882,6 +3288,7 @@ def main() -> int:
         archs = phase_lm_archs(results, smi)
         ssm = phase_lm_archs(results, smi, ARCH_SSM, "lm-ssm", "lm_ssm")
         train_launches = phase_lm_train(results, smi, work)
+        shard_launches = phase_shard(results, smi)
     finally:
         if old_cache is None:
             os.environ.pop("REPRO_DATASETS_CACHE", None)
@@ -2948,12 +3355,17 @@ def main() -> int:
         "launches": lm_launches + sum(
             sum(n.values()) if isinstance(n, dict) else n for n in (
                 *archs["launches"].values(), *ssm["launches"].values(),
-                *train_launches.values())),
+                *train_launches.values())) + shard_launches,
         "launches_by_path": {"llama3.2-1b": results["lm_serve"]["launches"],
                              **archs["launches"], **ssm["launches"],
                              **{f"train {k}": n
-                                for k, n in train_launches.items()}},
+                                for k, n in train_launches.items()},
+                             "train sharded (phase 17)": shard_launches},
         **numbers(flash_row),
+        "fp32": dict(numbers(results["flash_main_fp32"]), **{
+            k: results["flash_main_fp32"][k] for k in (
+                "B", "Hq", "Hkv", "Tq", "Tk", "D", "dtype", "vs_library",
+                "bound_share")}),
         "tflop_s": flash_row["tflop_s"],
         "shape": {k: flash_row[k] for k in ("B", "Hq", "Hkv", "Tq", "Tk",
                                             "D", "dtype", "mask")},

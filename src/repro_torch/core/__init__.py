@@ -6,8 +6,9 @@ from repro_torch.core.baselines import (expansion_stats, lhop_closure,
                                         train_vrgcn)
 from repro_torch.core.batching import (ClusterBatch, ClusterBatcher, Sampler,
                                        batch_to_device,
+                                       label_entropy_per_cluster,
                                        normalized_subgraph_csr,
-                                       subgraph_payload)
+                                       subgraph_payload, utilization_stats)
 from repro_torch.core.engine import (CheckpointHook, DataParallelBackend,
                                      Engine, EvalHook, LoggingHook,
                                      PreemptionHook, SingleDeviceBackend,
@@ -37,7 +38,8 @@ from repro_torch.core.trainer import (evaluate, full_graph_logits,
 
 __all__ = [
     "ClusterBatch", "ClusterBatcher", "Sampler", "batch_to_device",
-    "normalized_subgraph_csr", "subgraph_payload", "CheckpointHook",
+    "normalized_subgraph_csr", "subgraph_payload", "utilization_stats",
+    "label_entropy_per_cluster", "CheckpointHook",
     "Engine", "EvalHook", "LoggingHook", "PreemptionHook",
     "SingleDeviceBackend", "DataParallelBackend", "StepBackend",
     "StopAtStepHook", "TrainResult",

@@ -16,7 +16,9 @@ sparse payload's adjacency is a `BlockEllAdj` whose leaves are CPU
 tensors over the builder's numpy buffers; `batch_to_device` moves a
 payload to the device the step runs on. The GraphSAINT samplers
 (`core/samplers.py`) build their payloads through `subgraph_payload`
-too.
+too. `utilization_stats` and `label_entropy_per_cluster` measure a
+partition as the paper's §3.1 and Fig. 2 do (host numpy, the
+reference's code).
 """
 from __future__ import annotations
 
@@ -471,6 +473,49 @@ class ClusterBatcher:
                 stats["k_buckets"] = list(self.k_plan.buckets)
         return stats
 
+
+
+def utilization_stats(graph: CSRGraph, parts: Array,
+                      q: int, trials: int = 20, seed: int = 0) -> dict:
+    """Embedding utilization = within-batch edge fraction (paper §3.1).
+
+    Measures the actual fraction of graph edges available inside sampled
+    q-cluster batches (between-cluster links among chosen clusters count —
+    §3.2 adds them back).
+    """
+    rng = np.random.default_rng(seed)
+    num_parts = int(parts.max()) + 1
+    row = np.repeat(np.arange(graph.num_nodes), graph.degrees)
+    src_p, dst_p = parts[row], parts[graph.indices]
+    fracs = []
+    for _ in range(trials):
+        chosen = rng.choice(num_parts, size=min(q, num_parts), replace=False)
+        inset = np.zeros(num_parts, bool)
+        inset[chosen] = True
+        within = inset[src_p] & inset[dst_p]
+        # edges touching chosen clusters
+        touch = inset[src_p] | inset[dst_p]
+        fracs.append(within.sum() / max(1, touch.sum()))
+    return dict(mean_within=float(np.mean(fracs)),
+                std_within=float(np.std(fracs)))
+
+
+def label_entropy_per_cluster(graph: CSRGraph, parts: Array) -> Array:
+    """Paper Fig. 2: label-distribution entropy per cluster."""
+    labels = graph.labels
+    if labels.ndim > 1:
+        labels = labels.argmax(1)
+    num_parts = int(parts.max()) + 1
+    num_classes = int(labels.max()) + 1
+    ent = np.zeros(num_parts)
+    for t in range(num_parts):
+        sel = labels[parts == t]
+        if len(sel) == 0:
+            continue
+        p = np.bincount(sel, minlength=num_classes) / len(sel)
+        p = p[p > 0]
+        ent[t] = float(-(p * np.log(p)).sum())
+    return ent
 
 def batch_to_device(batch_tuple, device, non_blocking: bool = False):
     """A `ClusterBatch.astuple()` payload (numpy leaves; the adjacency

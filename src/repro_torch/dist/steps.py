@@ -3,15 +3,28 @@
 LM training: `spec_train_state` is the TensorSpec tree of the whole
 train state (params, the AdamW step and fp32 moments), which
 `init_tree` materializes; `make_train_step` returns (state, batch) ->
-(state, metrics) on one device: `lm_loss` under the CellPolicy's remat
-and loss chunk, gradients accumulated in fp32 over the policy's
-microbatches (`nn.core.accumulate_gradients`), then the optimizer. The
-state's keys are the reference's, so a checkpoint of either package's
-train state restores in the other.
+(state, metrics): `lm_loss` under the CellPolicy's remat and loss
+chunk, gradients accumulated in fp32 over the policy's microbatches,
+then the optimizer. The state's keys are the reference's, so a
+checkpoint of either package's train state restores in the other.
+
+Without a mesh the step runs on one device
+(`nn.core.accumulate_gradients`). With `mesh=` (a DeviceMesh,
+`launch.mesh`) the same step body is the reference's pjit step in
+eager DTensor form:
+the state's leaves are DTensors laid out per `dist.sharding`
+(`shardings_for` of `spec_train_state`; FSDP when `policy.fsdp`), the
+batch is sharded over the data axes, and DTensor's sharding propagation
+places the collectives GSPMD would: the FSDP all-gathers of each weight
+where it is used, the activations constrained to `act_spec` at the
+reference's points, each gradient reduced (reduce-scatter or all-reduce)
+to its param's layout, the update local to each shard. Attention runs
+its kernel on local shards (`kernels.ops.sharded_attention`).
 
 LM serving: `make_prefill_step` / `make_decode_step` (decoders) and
-`make_encode_step` (encoder-only archs) are plain closures over the
-architecture config (the port runs a model on one card).
+`make_encode_step` (encoder-only archs) are closures over the
+architecture config; given DTensor params and inputs they run sharded,
+with the activations constrained to `act_spec`.
 
 GCN data parallel: `make_gcn_train_step` runs the paper's training step
 on every rank of a `torch.distributed` process group, where the
@@ -24,6 +37,7 @@ the same optimizer update, so the params stay identical everywhere.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict
 
 import torch
@@ -40,6 +54,7 @@ from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.dist.sharding import CellPolicy
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import _gathered
 from repro_torch.models.lm import (decode_step, encode, lm_loss, prefill,
                                    spec_params)
 from repro_torch.models.spec import TensorSpec, map_specs
@@ -69,30 +84,56 @@ def spec_train_state(cfg: ArchConfig) -> Dict:
             "nu": map_specs(moment, params)}
 
 
-def make_train_step(cfg: ArchConfig, policy: CellPolicy,
-                    opt: Optimizer) -> Callable:
+def make_train_step(cfg: ArchConfig, policy: CellPolicy, opt: Optimizer,
+                    act_spec=None, mesh=None) -> Callable:
     """(state, batch) -> (state, metrics "loss", "acc", "grad_norm"),
     the metrics 0-d tensors on the state's device (reading them syncs
     the host; the step itself does not). With policy.microbatches = m >
     1 the batch's leading dim is split into m microbatches whose
     gradients accumulate in fp32 and are averaged; loss and accuracy
-    are the microbatches' means. The port trains on one device, so
-    `policy.fsdp` (sharding over a mesh) raises until ROADMAP A7 ports
-    the sharding rules."""
-    if policy.fsdp:
-        raise NotImplementedError(
-            "CellPolicy.fsdp shards over a device mesh; the port trains on "
-            "one device until the sharding rules are ported (ROADMAP A7)")
+    are the microbatches' means.
+
+    With `mesh` the same step runs sharded (module docstring): the
+    state's leaves must be DTensors on `mesh` (`dist.sharding.
+    distribute_tree` of `shardings_for(spec_train_state(cfg), mesh,
+    rules)`), the batch DTensors or plain global tensors (each rank then
+    keeps its batch shard), `act_spec` the activations' spec
+    (`(rules["batch"], None, None)`); the new state keeps the state's
+    layouts and the metrics are plain tensors. The mesh decides only
+    the inputs' placement, the microbatch split and the layouts
+    (`_like`, `_full`: identities on plain tensors). Without a mesh,
+    `policy.fsdp` raises: there is nothing to shard over."""
+    if mesh is None and policy.fsdp:
+        raise ValueError("CellPolicy(fsdp=True) shards the train state over "
+                         "a device mesh: pass mesh= (launch.mesh)")
+    batch_axis = act_spec[0] if act_spec else None
 
     def loss_fn(params, mb):
         loss, metrics = lm_loss(params, cfg, mb, remat=policy.remat,
-                                loss_chunk=policy.loss_chunk)
+                                loss_chunk=policy.loss_chunk,
+                                act_spec=act_spec)
         return loss, {"acc": metrics["acc"]}
+
+    def shard_input(x):
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        from repro_torch.dist.sharding import placements
+        if isinstance(x, DTensor):
+            return x
+        return distribute_tensor(x, mesh, placements(
+            (batch_axis,) + (None,) * (x.dim() - 1), mesh),
+            src_data_rank=None)
+
+    def split(batch, m):
+        return _split_microbatches(batch, m, act_spec)
 
     def step(state: Dict, batch: Dict):
         params = state["params"]
-        loss, aux, grads = accumulate_gradients(loss_fn, params, batch,
-                                                policy.microbatches)
+        if mesh is not None:
+            batch = {k: shard_input(v) for k, v in batch.items()}
+        loss, aux, grads = accumulate_gradients(
+            loss_fn, params, batch, policy.microbatches,
+            split=None if mesh is None else split, grad_layout=_like)
         with torch.no_grad():
             opt_state = AdamState(step=state["step"], mu=state["mu"],
                                   nu=state["nu"])
@@ -100,35 +141,99 @@ def make_train_step(cfg: ArchConfig, policy: CellPolicy,
             new_state = {"params": apply_updates(params, updates),
                          "step": opt_state.step, "mu": opt_state.mu,
                          "nu": opt_state.nu}
-            metrics = {"loss": loss, "acc": aux["acc"],
-                       "grad_norm": global_norm(grads)}
+            new_state = tree_map(_like, new_state, state)
+            metrics = {"loss": _full(loss), "acc": _full(aux["acc"]),
+                       "grad_norm": _full(global_norm(grads))}
         return new_state, metrics
 
-    return step
+    return step if mesh is None else _sharded(step)
 
 
-def make_prefill_step(cfg: ArchConfig) -> Callable:
-    """(params, batch, caches) -> (last-position logits, caches)."""
+def _like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """x laid out as ref when ref is a DTensor (a gradient's
+    reduce-scatter or all-reduce to its param's layout, or a no-op); x
+    itself otherwise."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """The global value of a DTensor; x itself otherwise."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _sharded(fn: Callable) -> Callable:
+    """fn under `implicit_replication`, so the plain tensors the model
+    makes (positions, masks, scalars) join DTensor ops as replicated."""
+    def call(*args, **kwargs):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return fn(*args, **kwargs)
+    return call
+
+
+def _split_microbatches(batch: Dict, m: int, act_spec) -> list:
+    """The m microbatches of a DTensor batch, microbatch c the rows
+    c·B/m … (c+1)·B/m as in the unsharded step, each re-pinned to the
+    batch layout (the reference's `_split_microbatches`). Where m does
+    not divide the batch dim's shards, that dim is gathered first (the
+    inputs are token ids or frame embeddings, small beside the step)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.lm import _constrain
+    batch_axis = act_spec[0] if act_spec else None
+
+    def split(x):
+        if x.shape[0] % m:
+            raise ValueError(f"global batch {x.shape[0]} not divisible by "
+                             f"microbatches={m}")
+        shards = math.prod(n for n, p in zip(tuple(x.device_mesh.shape),
+                                             x.placements)
+                           if p == Shard(0))
+        if m % shards:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p == Shard(0) else p for p in x.placements])
+        return x.reshape((m, x.shape[0] // m) + tuple(x.shape[1:]))
+    micro = {k: split(v) for k, v in batch.items()}
+    return [{k: _constrain(v[c], (batch_axis,) + (None,) * (v.dim() - 2))
+             for k, v in micro.items()} for c in range(m)]
+
+
+def make_prefill_step(cfg: ArchConfig, policy: CellPolicy = None,
+                      act_spec=None) -> Callable:
+    """(params, batch, caches) -> (last-position logits, caches). The
+    policy is the reference's argument; a prefill runs no backward, so
+    its remat changes nothing here."""
+    @_sharded
     def step(params, batch, caches):
-        return prefill(params, cfg, batch, caches)
+        return prefill(params, cfg, batch, caches, act_spec=act_spec)
     return step
 
 
-def make_decode_step(cfg: ArchConfig) -> Callable:
+def make_decode_step(cfg: ArchConfig, policy: CellPolicy = None,
+                     act_spec=None) -> Callable:
     """(params, tokens (B, 1), caches, pos) -> (next greedy token (B, 1)
     int32, logits (B, V), caches). The argmax stays on the device, so a
     decode loop never waits for the host."""
+    @_sharded
     def step(params, tokens, caches, pos):
-        logits, caches = decode_step(params, cfg, tokens, caches, pos)
-        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        logits, caches = decode_step(params, cfg, tokens, caches, pos,
+                                     act_spec=act_spec)
+        nxt = _gathered(logits, -1).argmax(-1).to(torch.int32)[:, None]
         return nxt, logits, caches
     return step
 
 
-def make_encode_step(cfg: ArchConfig) -> Callable:
+def make_encode_step(cfg: ArchConfig, policy: CellPolicy = None,
+                     act_spec=None) -> Callable:
     """Encoder-only forward: (params, batch) -> frame logits (B, S, V)."""
+    @_sharded
     def step(params, batch):
-        return encode(params, cfg, batch)
+        return encode(params, cfg, batch, act_spec=act_spec)
     return step
 
 

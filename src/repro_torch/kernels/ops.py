@@ -14,7 +14,9 @@ Dispatch: `spmm(adj, x)` and `spmm_xw(adj, x, w, b)` take a dense
 adjacency (a tensor: `torch.matmul` in x's dtype with fp32
 accumulation) or a `BlockEllAdj` (the differentiable block-ELL products
 of `repro_torch.kernels.block_spmm`). `multi_head_attention(q, k, v)`
-is the attention seam of the LM stack (`kernels/flash_attention.py`).
+is the attention seam of the LM stack (`kernels/flash_attention.py`);
+on DTensors (a sharded step) it runs the kernel under `local_map`, so
+the kernel only ever sees one rank's shards.
 
 Format (what the CUDA kernels assume): blocks (nrb, K, B, B) value
 tiles; block_cols (nrb, K) int32; within a row-block the occupied
@@ -23,6 +25,8 @@ slots hold an all-zero tile pointing at column-block 0.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -488,6 +492,59 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     — the counterpart of `repro.kernels.ops.multi_head_attention`. GQA
     maps q head h to kv head h // (Hq/Hkv). CUDA tensors run the flash
     kernel (`csrc/flash_attention.cu`, kv heads indexed in place), CPU
-    tensors its plain version (kv heads repeated)."""
+    tensors its plain version (kv heads repeated). DTensors go through
+    `sharded_attention`."""
+    if _is_dtensor(q):
+        return sharded_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def sharded_attention(q, k, v, *, causal: bool = True, window=None,
+                      softcap=None, scale=None):
+    """`flash_attention` on DTensors q (B, Hq, Tq, D), k, v (B, Hkv, Tk,
+    D): the batch over the mesh's data axes and the heads over 'model'
+    (each only where it divides), then the kernel under `local_map` on
+    every rank's shards, so `_FlashAttention` (which passes raw
+    pointers) never receives a DTensor. Attention is independent per
+    (batch row, head), so the local results are the global result's
+    shards and no collective runs inside. When the kv heads do not split
+    over 'model' (Hkv < the axis), k and v are repeated to the q heads
+    first (q head h reads kv head h // (Hq/Hkv)), on each rank's
+    replicated copy."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, tuple(mesh.shape)))
+    B, Hq = q.shape[0], q.shape[1]
+    Hkv = k.shape[1]
+    dsize = math.prod(sizes[a] for a in names if a in ("pod", "data"))
+    msize = sizes.get("model", 1)
+    by_batch = B % dsize == 0
+    by_heads = Hq % msize == 0
+
+    def layout(heads_sharded: bool):
+        return tuple(
+            Shard(0) if a in ("pod", "data") and by_batch else
+            Shard(1) if a == "model" and heads_sharded else Replicate()
+            for a in names)
+    qp = layout(by_heads)
+    if by_heads and msize > 1 and Hkv % msize:
+        rep = Hq // Hkv
+        k, v = (t.redistribute(mesh, layout(False)) for t in (k, v))
+        k, v = (t[:, :, None].expand(t.shape[0], Hkv, rep, *t.shape[2:])
+                .reshape(t.shape[0], Hq, *t.shape[2:]) for t in (k, v))
+    q, k, v = (t.redistribute(mesh, qp) for t in (q, k, v))
+    fn = local_map(functools.partial(flash_attention, causal=causal,
+                                     window=window, softcap=softcap,
+                                     scale=scale),
+                   out_placements=(qp,), in_placements=(qp, qp, qp),
+                   device_mesh=mesh)
+    return fn(q, k, v)

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _silu, rmsnorm, spec_rmsnorm
+from repro_torch.models.layers import (_silu, _splittable, rmsnorm,
+                                       spec_rmsnorm)
 from repro_torch.models.spec import TensorSpec
 
 
@@ -183,7 +184,7 @@ def _mamba2_ssd_inputs(cfg: ArchConfig, params, xbc_conv, dt_pre):
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     x, Bmat, Cmat = torch.split(xbc_conv, [di, N, N], dim=-1)
     lead = tuple(x.shape[:-1])
-    xh = x.reshape(lead + (H, P))
+    xh = _splittable(x, -1, H).reshape(lead + (H, P))
     dt = _softplus(dt_pre.float() + params["dt_bias"].float())
     a = -torch.exp(params["A_log"].float())                  # (H,) < 0
     g = dt * a                                               # log decay ≤ 0
@@ -272,10 +273,12 @@ def _mlstm_qkvg(params, cfg: ArchConfig, x_in, conv_state):
     xc, new_conv = causal_conv(xm, params["conv_w"], conv_state)
     xc = _silu(xc)
     S = xc.shape[1]
-    q = (xc @ params["wq"].to(xc.dtype)).reshape(B, S, H, N)
-    k = (xc @ params["wk"].to(xc.dtype)).reshape(B, S, H, N) \
-        * _scalar(N ** -0.5, xc)
-    v = (xm @ params["wv"].to(xm.dtype)).reshape(B, S, H, P)
+    q = _splittable(xc @ params["wq"].to(xc.dtype), -1, H).reshape(
+        B, S, H, N)
+    k = _splittable(xc @ params["wk"].to(xc.dtype), -1, H).reshape(
+        B, S, H, N) * _scalar(N ** -0.5, xc)
+    v = _splittable(xm @ params["wv"].to(xm.dtype), -1, H).reshape(
+        B, S, H, P)
     gates = xc @ params["w_gates"].to(xc.dtype) \
         + params["b_gates"].to(xc.dtype)
     i_pre, f_pre = torch.chunk(gates.float(), 2, dim=-1)
@@ -373,7 +376,7 @@ def slstm_apply(params, cfg: ArchConfig, x, cache=None, decode=False
     dh = d // H
     hin = rmsnorm(params["norm"], x, cfg.norm_eps)
     wx = hin @ params["w_in"].to(hin.dtype)              # (B, S, 4d)
-    wx = wx.float().reshape(B, S, 4, H, dh)
+    wx = _splittable(wx.float(), -1, 4).reshape(B, S, 4, H, dh)
     r = params["r"].float().permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)
     b = params["b"].float().reshape(4, H, dh)
     if cache is None:

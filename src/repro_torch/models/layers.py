@@ -13,13 +13,19 @@ gets identical values without the per-call cast. Norm scales stay fp32.
 Caches are written in place: prefill and decode update the cache
 tensors they are given and return that same dict (the reference returns
 new arrays with the same values).
+
+In a sharded step the same code runs on DTensors. Where DTensor cannot
+carry a layout through a reshape (heads that do not split evenly over
+the mesh), `_splittable` and `_pinned` gather the dim first; the MoE
+buffers and expert weights take the reference's constraints
+(`_moe_constrain`). Each is the identity on plain tensors.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ArchConfig
@@ -128,6 +134,50 @@ def attn_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
     }
 
 
+def _gathered(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor with dim `dim` gathered on every mesh dim that shards
+    it; anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.dim()
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == dim else p
+        for p in t.placements])
+
+
+def _splittable(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """t, ready for its dim `dim` to be split into (n, ·): a DTensor
+    whose dim is sharded over mesh dims that do not divide n (kv width
+    512 over 16 ranks for 8 heads) is gathered on them first
+    (`_gathered`); anything else is returned as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return t
+    d = dim % t.dim()
+    ways = math.prod(size for size, p in zip(tuple(t.device_mesh.shape),
+                                             t.placements)
+                     if isinstance(p, Shard) and p.dim == d)
+    return t if n % ways == 0 else _gathered(t, dim)
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """t itself; on a DTensor, an identity whose backward brings the
+    gradient to t's layout, so the heads merged into t are split again
+    from a layout that splits evenly (DTensor may shard the incoming
+    gradient along the merged dim)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, t.placements)
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """t (B, T, n·hd) viewed as (B, T, n, hd) (`_splittable` first)."""
+    t = _splittable(t, -1, n)
+    return t.view(t.shape[0], t.shape[1], n, hd)
+
+
 def _qkv(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
          kind: str):
     """q (B, Hq, T, hd), k and v (B, Hkv, T, hd), rotated; k and v are
@@ -135,9 +185,9 @@ def _qkv(params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     reads in place."""
     B, T, _ = x.shape
     hd, nq, nkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    q = (x @ params["wq"].to(x.dtype)).view(B, T, nq, hd)
-    k = (x @ params["wk"].to(x.dtype)).view(B, T, nkv, hd)
-    v = (x @ params["wv"].to(x.dtype)).view(B, T, nkv, hd)
+    q = _split_heads(x @ params["wq"].to(x.dtype), nq, hd)
+    k = _split_heads(x @ params["wk"].to(x.dtype), nkv, hd)
+    v = _split_heads(x @ params["wv"].to(x.dtype), nkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -162,6 +212,10 @@ def _write_prefill_cache(cache, cfg: ArchConfig, kind: str, k, v,
         raise ValueError(f"global-attention cache has {slots} slots < "
                          f"prompt length {T}; size caches to the full "
                          f"context")
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache["k"], DTensor):
+        _write_prefill_whole(cache, k, v, positions, slots)
+        return
     if slots >= T:
         for name, new in (("k", k), ("v", v)):
             cache[name][:, :, :T] = new
@@ -176,6 +230,35 @@ def _write_prefill_cache(cache, cfg: ArchConfig, kind: str, k, v,
             cache[name][:, :, idx] = new[:, :, T - slots:]
         cache["pos"].fill_(-1)
         cache["pos"][idx] = pp.to(torch.int32)
+
+
+def _write_prefill_whole(cache, k, v, positions, slots: int) -> None:
+    """`_write_prefill_cache` for DTensor caches: each cache tensor is
+    built whole and copied in (a write into a slice of a dim sharded
+    over the mesh, the sequence-sharded KV of kv=1 archs, would land in
+    a gathered copy). A ring's slot j holds the position
+    T - slots + ((j - T) mod slots): a rotation of the last `slots`."""
+    T = k.shape[2]
+    if slots >= T:
+        def fill(t, dim, value):
+            shape = list(t.shape)
+            shape[dim] = slots - T
+            return torch.cat([t, torch.full(shape, value, dtype=t.dtype,
+                                            device=t.device)], dim)
+        kv = [fill(t, 2, 0) for t in (k, v)]
+        pos = fill(positions.to(torch.int32), 0, -1)
+    else:
+        r = (T - slots) % slots
+
+        def fill(t, dim, value):
+            t = t.narrow(dim, T - slots, slots)
+            return torch.cat([t.narrow(dim, slots - r, r),
+                              t.narrow(dim, 0, slots - r)], dim)
+        kv = [fill(t, 2, 0) for t in (k, v)]
+        pos = fill(positions.to(torch.int32), 0, -1)
+    for name, t in zip(("k", "v"), kv):
+        cache[name].copy_(t)
+    cache["pos"].copy_(pos)
 
 
 def attention_apply(params, cfg: ArchConfig, x: torch.Tensor, *, kind: str,
@@ -204,14 +287,23 @@ def attention_apply(params, cfg: ArchConfig, x: torch.Tensor, *, kind: str,
             _write_prefill_cache(cache, cfg, kind, k, v, positions)
     else:
         widx = decode_pos % cache["k"].shape[2]
-        cache["k"][:, :, widx] = k[:, :, 0]
-        cache["v"][:, :, widx] = v[:, :, 0]
-        cache["pos"][widx] = decode_pos
+        from torch.distributed.tensor import DTensor
+        if isinstance(cache["k"], DTensor):     # whole, as in the prefill
+            slot = torch.arange(cache["k"].shape[2],
+                                device=k.device) == widx
+            for name, new in (("k", k), ("v", v)):
+                cache[name].copy_(torch.where(slot[:, None], new,
+                                              cache[name]))
+            cache["pos"].copy_(torch.where(slot, decode_pos, cache["pos"]))
+        else:
+            cache["k"][:, :, widx] = k[:, :, 0]
+            cache["v"][:, :, widx] = v[:, :, 0]
+            cache["pos"][widx] = decode_pos
         out = decode_attention(q, cache["k"], cache["v"], cache["pos"],
                                decode_pos, window=window,
                                softcap=cfg.attn_softcap)
 
-    out = out.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.hd)
+    out = _pinned(out.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.hd))
     out = out @ params["wo"].to(out.dtype)
     if cfg.post_norm:
         out = rmsnorm(params["post"], out, cfg.norm_eps)
@@ -230,7 +322,7 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     B, Hq, _, D = q.shape
     Hkv = kc.shape[1]
     rep = Hq // Hkv
-    qg = q.float().reshape(B, Hkv, rep, D)
+    qg = _splittable(q.float(), 1, Hkv).reshape(B, Hkv, rep, D)
     s = torch.einsum("bgrd,bgkd->bgrk", qg, kc.float()) * (D ** -0.5)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -311,6 +403,134 @@ def moe_route(params, cfg: ArchConfig, h: torch.Tensor):
     return probs, vals[..., :k], idx[..., :k]
 
 
+def _moe_constrain(x: torch.Tensor, spec_axes) -> torch.Tensor:
+    """The reference's MoE constraint: on a DTensor, x redistributed so
+    each dim sits on the mesh axes its entry names ("data": the data
+    axes, "model"); a plain tensor (no mesh), or a layout whose dims do
+    not divide their axes, is returned as it is. The (E, C, ·) dispatch
+    buffer goes to (data = rows, model = experts), and the expert
+    weights to experts over 'model' with their FSDP dims gathered, so
+    the expert products are local."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.dist.sharding import _data_spec, constrain, placements
+    from repro_torch.launch.mesh import axis_size
+    mesh = x.device_mesh
+    data = _data_spec(mesh)
+    model = "model" if "model" in tuple(mesh.mesh_dim_names) else None
+    spec = tuple(model if a == "model" else (data if a == "data" else None)
+                 for a in spec_axes)
+    if any(e is not None and d % axis_size(mesh, e)
+           for d, e in zip(x.shape, spec)):
+        return x
+    return constrain(x, placements(spec, mesh))
+
+
+def _moe_slots(topi: torch.Tensor, Bd: int, C: int, E: int):
+    """(expert, slot) of every assignment in token-major order, per
+    dispatch row: each row sorts its assignments by expert (stable); one
+    past its expert's C slots goes to the overflow row E."""
+    flat_e = topi.reshape(Bd, -1)
+    n = flat_e.shape[1]
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    e_s = flat_e.gather(-1, order)
+    experts = torch.arange(E, device=topi.device).expand(Bd, E).contiguous()
+    starts = torch.searchsorted(e_s, experts)               # (Bd, E)
+    pos_in_e = torch.arange(n, device=topi.device) - starts.gather(-1, e_s)
+    keep_s = pos_in_e < C
+    dst_e_s = torch.where(keep_s, e_s, E)                    # overflow row
+    dst_c_s = torch.where(keep_s, pos_in_e, 0)
+    # back to token-major order: position order[j] takes sorted entry j
+    de_o = torch.empty_like(dst_e_s).scatter_(-1, order, dst_e_s)
+    dc_o = torch.empty_like(dst_c_s).scatter_(-1, order, dst_c_s)
+    return de_o, dc_o
+
+
+def _moe_dispatch(h: torch.Tensor, de_o, dc_o, E: int, C: int, k: int):
+    """The (Bd, E, C, d) buffer of the rows' assignments."""
+    Bd, _, d = h.shape
+    rows = torch.arange(Bd, device=h.device)[:, None]
+    buf = h.new_zeros((Bd, E + 1, C, d))
+    buf[rows, de_o, dc_o] = h.repeat_interleave(k, dim=1)
+    return buf[:, :E]
+
+
+def _moe_collect(out: torch.Tensor, de_o, dc_o, flat_w, lo: int = 0):
+    """Each assignment's expert output times its weight, (Bd, T·k, d),
+    from the experts lo … lo + out.shape[1] that `out` holds (zero for
+    the rest and for dropped assignments)."""
+    Bd, El = out.shape[:2]
+    rows = torch.arange(Bd, device=out.device)[:, None]
+    e = de_o - lo
+    gathered = out[rows, e.clamp(0, El - 1), dc_o]
+    w_keep = (flat_w * ((e >= 0) & (e < El))).to(gathered.dtype)
+    return gathered * w_keep[..., None]
+
+
+def _moe_experts(params, cfg: ArchConfig, buf: torch.Tensor, big: bool):
+    """The expert FFN on the (Bd, E, C, d) buffer."""
+    wg, wu, wd = (params[n].to(buf.dtype) for n in ("wg", "wu", "wd"))
+    if big:
+        # ZeRO-3 gather of the expert weights' FSDP dims, only where the
+        # activations outweigh the weights (training, prefill)
+        wg, wu, wd = (_moe_constrain(w, ("model", None, None))
+                      for w in (wg, wu, wd))
+    act = _act(cfg.act)
+    g = act(torch.einsum("becd,edf->becf", buf, wg))
+    u = torch.einsum("becd,edf->becf", buf, wu)
+    return torch.einsum("becf,efd->becd", g * u, wd)
+
+
+def _moe_sharded(params, cfg: ArchConfig, h, topv, topi, Bd: int, C: int):
+    """The dispatch, experts and collection on DTensors: the row-local
+    bookkeeping, the buffer writes and the collection run under
+    `local_map` on each rank's rows (DTensor has no rules for their
+    index ops); the expert products shard over 'model' as the buffer
+    and weights are constrained. A rank collects only its own experts'
+    outputs, so the result is partial over the mesh dims that shard the
+    experts (the caller's `_constrain` sums it). Returns (Bd, T·k, d)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    E, k = cfg.num_experts, cfg.experts_per_token
+    mesh = h.device_mesh
+    if Bd == 1:          # one dispatch row over every token: gather them
+        h = h.redistribute(mesh, [Replicate()] * mesh.ndim)
+        topi = topi.redistribute(mesh, [Replicate()] * mesh.ndim)
+        topv = topv.redistribute(mesh, [Replicate()] * mesh.ndim)
+    rp = tuple(topi.placements)
+    de_o, dc_o = local_map(lambda t: _moe_slots(t, t.shape[0] if Bd > 1
+                                                else 1, C, E),
+                           out_placements=(rp, rp), in_placements=(rp,),
+                           device_mesh=mesh)(topi)
+    hp = tuple(h.placements)
+    buf = local_map(lambda x, a, b: _moe_dispatch(x, a, b, E, C, k),
+                    out_placements=(hp,), in_placements=(hp, rp, rp),
+                    device_mesh=mesh)(h.reshape(Bd, -1, h.shape[-1]),
+                                      de_o, dc_o)
+    buf = _moe_constrain(buf, ("data" if Bd > 1 else None, "model", None,
+                               None))
+    out = _moe_experts(params, cfg, buf, Bd * h.shape[1] > 512)
+    # rows as the bookkeeping's, experts where DTensor put them, the rest
+    # whole: the layout the collection below reads
+    op = tuple(Shard(0) if rp[i] == Shard(0) else
+               (p if isinstance(p, Shard) and p.dim == 1 else Replicate())
+               for i, p in enumerate(out.placements))
+    out = out.redistribute(mesh, op)
+    ex = [i for i, p in enumerate(op) if isinstance(p, Shard)
+          and p.dim == 1]
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in ex:
+        shard = shard * mesh.size(i) + coord[i]
+    res = tuple(Partial() if i in ex else p for i, p in enumerate(rp))
+    return local_map(
+        lambda o, a, b, w: _moe_collect(o, a, b, w, lo=shard * o.shape[1]),
+        out_placements=(res,), in_placements=(op, rp, rp, rp),
+        in_grad_placements=(op, rp, rp, res), device_mesh=mesh)(
+            out, de_o, dc_o, topv.reshape(Bd, -1))
+
+
 def moe_apply(params, cfg: ArchConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (y (B, T, d), the Switch load-balancing aux loss).
@@ -322,8 +542,10 @@ def moe_apply(params, cfg: ArchConfig, x: torch.Tensor
     flatten to one row with C = B·T, which no expert can overflow, so
     decode is exact. The expert products are batched matmuls over the
     buffer; each token's outputs are collected from its k slots and
-    summed with the renormalised top-k weights.
+    summed with the renormalised top-k weights. DTensors take
+    `_moe_sharded`.
     """
+    from torch.distributed.tensor import DTensor
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
@@ -334,37 +556,17 @@ def moe_apply(params, cfg: ArchConfig, x: torch.Tensor
         Bd, Td, C = 1, B * T, B * T
     else:
         Bd, Td, C = B, T, moe_capacity(cfg, T)
-    h = h.reshape(Bd, Td, d)
+    if isinstance(h, DTensor):
+        contrib = _moe_sharded(params, cfg, h, topv, topi, Bd, C)
+    else:
+        h = h.reshape(Bd, Td, d)
+        de_o, dc_o = _moe_slots(topi, Bd, C, E)
+        buf = _moe_dispatch(h, de_o, dc_o, E, C, k)
+        out = _moe_experts(params, cfg, buf, Bd * Td > 512)
+        contrib = _moe_collect(out, de_o, dc_o, topv.reshape(Bd, Td * k))
+    y = contrib.reshape(B, T, k, d).sum(2)
 
-    flat_e = topi.reshape(Bd, Td * k)     # token-major assignment order
-    flat_w = topv.reshape(Bd, Td * k)
-    order = torch.sort(flat_e, dim=-1, stable=True).indices
-    e_s = flat_e.gather(-1, order)
-    experts = torch.arange(E, device=x.device).expand(Bd, E).contiguous()
-    starts = torch.searchsorted(e_s, experts)               # (Bd, E)
-    pos_in_e = torch.arange(Td * k, device=x.device) \
-        - starts.gather(-1, e_s)
-    keep_s = pos_in_e < C
-    dst_e_s = torch.where(keep_s, e_s, E)                    # overflow row
-    dst_c_s = torch.where(keep_s, pos_in_e, 0)
-    # back to token-major order: position order[j] takes sorted entry j
-    de_o = torch.empty_like(dst_e_s).scatter_(-1, order, dst_e_s)
-    dc_o = torch.empty_like(dst_c_s).scatter_(-1, order, dst_c_s)
-
-    rows = torch.arange(Bd, device=x.device)[:, None]
-    buf = h.new_zeros((Bd, E + 1, C, d))
-    buf[rows, de_o, dc_o] = h.repeat_interleave(k, dim=1)
-    buf = buf[:, :E]
-
-    act = _act(cfg.act)
-    g = act(torch.einsum("becd,edf->becf", buf, params["wg"].to(h.dtype)))
-    u = torch.einsum("becd,edf->becf", buf, params["wu"].to(h.dtype))
-    out = torch.einsum("becf,efd->becd", g * u, params["wd"].to(h.dtype))
-
-    gathered = out[rows, de_o.clamp(max=E - 1), dc_o]       # (Bd, T·k, d)
-    w_keep = (flat_w * (de_o < E)).to(gathered.dtype)
-    y = (gathered * w_keep[..., None]).reshape(B, T, k, d).sum(2)
-
-    frac = F.one_hot(topi, E).float().mean((0, 1, 2))
+    frac = (topi[..., None] == torch.arange(E, device=topi.device)
+            ).float().mean((0, 1, 2))
     aux = E * (frac * probs.mean((0, 1))).sum()
     return y, aux

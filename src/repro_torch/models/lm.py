@@ -36,6 +36,16 @@ Mamba2 `A_log` and `dt_bias` (fp32 decay) stay fp32.
 `cast_matmul_weights` to a whole fp32 tree. Training never pre-casts:
 the fp32 masters are cast at each use, as in the reference.
 
+Sharded runs: every entry point takes `act_spec`, the activations'
+sharding spec (a tuple of mesh-axis entries, `(batch axis, None,
+None)`). On DTensors (`dist/steps.py` with a mesh) the residual stream
+is redistributed to it at the reference's constraint points, the
+body's input and every group's output, and also at every sublayer's
+output: DTensor places each op on its own, and would otherwise leave a
+row-parallel product's partial sums pending in the residual stream
+(`_constrain`). On plain tensors it is ignored, as the reference's
+constraint is without a mesh.
+
 Logits are fp32, computed from the compute-dtype operands (the
 reference's `preferred_element_type=float32`): the rounded operands are
 upcast, which is exact, and multiplied in fp32.
@@ -63,10 +73,10 @@ from repro_torch.models.gla import (mamba2_apply, mamba2_cache_spec,
                                     mlstm_apply, mlstm_cache_spec,
                                     slstm_apply, slstm_cache_spec,
                                     spec_mamba2, spec_mlstm, spec_slstm)
-from repro_torch.models.layers import (attention_apply, attn_cache_spec,
-                                       mlp_apply, moe_apply, rmsnorm,
-                                       spec_attention, spec_mlp, spec_moe,
-                                       spec_rmsnorm)
+from repro_torch.models.layers import (_gathered, attention_apply,
+                                       attn_cache_spec, mlp_apply, moe_apply,
+                                       rmsnorm, spec_attention, spec_mlp,
+                                       spec_moe, spec_rmsnorm)
 from repro_torch.models.spec import TensorSpec, stack_specs
 from repro_torch.nn.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -169,21 +179,35 @@ def cast_matmul_weights(params: Dict, dtype: torch.dtype) -> Dict:
 # ----------------------------------------------------------------------
 # block application
 # ----------------------------------------------------------------------
+def _constrain(h: torch.Tensor, spec) -> torch.Tensor:
+    """h redistributed to the sharding spec `spec` on its own mesh when
+    h is a DTensor; h itself otherwise (or with no spec)."""
+    if spec is None:
+        return h
+    from torch.distributed.tensor import DTensor
+    if not isinstance(h, DTensor):
+        return h
+    from repro_torch.dist.sharding import constrain, placements
+    return constrain(h, placements(spec, h.device_mesh))
+
+
 def _apply_block(params, cfg: ArchConfig, kind: str, h: torch.Tensor, *,
-                 positions, attn_fn, cache, decode_pos
+                 positions, attn_fn, cache, decode_pos, act_spec=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block; returns (h, the MoE aux loss or None). A given cache
-    is written in place."""
+    is written in place. Each sublayer's output is constrained to
+    `act_spec` before the residual add (`_constrain`)."""
     if kind in _ATTN_KINDS:
         y, _ = attention_apply(
             params["attn"], cfg, h, kind=kind, positions=positions,
             attn_fn=attn_fn, cache=None if cache is None else cache["attn"],
             decode_pos=decode_pos)
-        h = h + y
+        h = h + _constrain(y, act_spec)
         if kind == "moe":
             y2, aux = moe_apply(params["moe"], cfg, h)
-            return h + y2, aux
-        return h + mlp_apply(params["mlp"], cfg, h), None
+            return h + _constrain(y2, act_spec), aux
+        y = mlp_apply(params["mlp"], cfg, h)
+        return h + _constrain(y, act_spec), None
     if kind not in _SSM:
         raise ValueError(kind)
     y, nc = _SSM[kind][2](params[kind], cfg, h,
@@ -192,12 +216,12 @@ def _apply_block(params, cfg: ArchConfig, kind: str, h: torch.Tensor, *,
     if cache is not None:
         for name, t in nc.items():
             cache[kind][name].copy_(t)
-    return h + y, None
+    return h + _constrain(y, act_spec), None
 
 
 def _apply_shared(shared_params, cfg: ArchConfig, h: torch.Tensor,
-                  gidx: int, *, positions, attn_fn, cache, decode_pos
-                  ) -> torch.Tensor:
+                  gidx: int, *, positions, attn_fn, cache, decode_pos,
+                  act_spec=None) -> torch.Tensor:
     """Zamba2 shared block after group `gidx`: attention + MLP with the
     weights `s{gidx % shared_attn_count}`; a given cache (this
     invocation's slot) is written in place."""
@@ -205,20 +229,24 @@ def _apply_shared(shared_params, cfg: ArchConfig, h: torch.Tensor,
     y, _ = attention_apply(p["attn"], cfg, h, kind="attn",
                            positions=positions, attn_fn=attn_fn,
                            cache=cache, decode_pos=decode_pos)
-    h = h + y
-    return h + mlp_apply(p["mlp"], cfg, h)
+    h = h + _constrain(y, act_spec)
+    return h + _constrain(mlp_apply(p["mlp"], cfg, h), act_spec)
 
 
 def _run_body(params, cfg: ArchConfig, h: torch.Tensor, *, positions,
               attn_fn, caches: Optional[Tree], decode_pos,
-              remat: bool = False
+              remat: bool = False, act_spec=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every group of the pattern (each followed by the shared block,
     if any), then the tail. Each block gets views of its group's slice
     of the stacked params and caches, so cache writes land in the
     stacked tensors. With `remat` (and no caches) each group runs under
-    `torch.utils.checkpoint`. Returns (h, the summed MoE aux loss)."""
-    kw = dict(positions=positions, attn_fn=attn_fn, decode_pos=decode_pos)
+    `torch.utils.checkpoint`. The body's input and each group's output
+    are constrained to `act_spec`. Returns (h, the summed MoE aux
+    loss)."""
+    kw = dict(positions=positions, attn_fn=attn_fn, decode_pos=decode_pos,
+              act_spec=act_spec)
+    h = _constrain(h, act_spec)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     # each stacked param leaf split once into its group slices: the
     # backward then stacks the slices' grads in one op, where indexing
@@ -239,7 +267,7 @@ def _run_body(params, cfg: ArchConfig, h: torch.Tensor, *, positions,
             sc = None if caches is None else tree_map(lambda t: t[g],
                                                       caches["shared"])
             hh = _apply_shared(params["shared"], cfg, hh, g, cache=sc, **kw)
-        return hh, aux
+        return _constrain(hh, act_spec), aux
 
     aux = zero
     for g in range(cfg.num_groups):
@@ -257,12 +285,57 @@ def _run_body(params, cfg: ArchConfig, h: torch.Tensor, *, positions,
     return h, aux
 
 
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the (V, d) embedding for int tokens (B, S). A plain
+    tensor is indexed. A DTensor is looked up Megatron-style under
+    `local_map`, so no index op meets DTensor's sharding rules: the
+    table's FSDP (data) shards are gathered, each rank indexes its own
+    tokens in its own vocab shard (rows outside it are zero), and the
+    rows are partial sums over the vocab's mesh axis (the caller's
+    `_constrain` reduces them). The table's gradient is local: partial
+    over the axes the tokens are split on, vocab-sharded as the
+    table."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(embed, DTensor):
+        return embed[tokens.long()]
+    from torch.distributed.tensor.experimental import local_map
+    w = _gather_data(embed)
+    mesh = w.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    t_pl = tuple(tokens.placements)
+    vocab = [i for i, p in enumerate(w.placements) if p == Shard(0)]
+    out_pl = tuple(Partial() if i in vocab else p
+                   for i, p in enumerate(t_pl))
+    grad_pl = tuple(Partial() if isinstance(tp, Shard) else wp
+                    for tp, wp in zip(t_pl, w.placements))
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in vocab:                     # this rank's vocab shard index
+        shard = shard * mesh.size(i) + coord[i]
+
+    def local(e, t):
+        t = t.long()
+        if not vocab:
+            return e[t]
+        lo = shard * e.shape[0]
+        inside = (t >= lo) & (t < lo + e.shape[0])
+        rows = e[torch.where(inside, t - lo, torch.zeros_like(t))]
+        return rows * inside[..., None].to(rows.dtype)
+    return local_map(local, out_placements=(out_pl,),
+                     in_placements=(tuple(w.placements), t_pl),
+                     in_grad_placements=(grad_pl, t_pl),
+                     device_mesh=mesh)(w, tokens)
+
+
 def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
     """(B, S, d) in the compute dtype."""
     dt = cfg.dtype
     if cfg.input_mode == "embeddings":
         return batch["embeddings"].to(dt)
-    tok_emb = params["embed"][batch["tokens"].long()].to(dt)
+    tok_emb = _lookup(params["embed"], batch["tokens"]).to(dt)
     if cfg.emb_scale_by_sqrt_dim:
         tok_emb = tok_emb * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.num_prefix_embeddings:
@@ -271,10 +344,26 @@ def _embed_inputs(params, cfg: ArchConfig, batch: Dict) -> torch.Tensor:
     return tok_emb
 
 
+def _gather_data(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its shards over the data axes gathered (the FSDP
+    all-gather of a weight before use); anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    names = tuple(t.device_mesh.mesh_dim_names)
+    return t.redistribute(t.device_mesh, [
+        Replicate() if names[i] in ("pod", "data") else p
+        for i, p in enumerate(t.placements)])
+
+
 def _head_weight(params, cfg: ArchConfig) -> torch.Tensor:
+    """The (d, V) head; in a sharded step gathered over the data axes,
+    so the logits are vocab-parallel over 'model' and each rank computes
+    only its own tokens' (DTensor would otherwise keep the FSDP dim
+    sharded and sum partial logits of every rank's tokens)."""
     if "lm_head" in params:
-        return params["lm_head"]
-    return params["embed"].T
+        return _gather_data(params["lm_head"])
+    return _gather_data(params["embed"].T)
 
 
 def _fp32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -327,8 +416,10 @@ def _ce_chunk(cfg: ArchConfig, hc: torch.Tensor, tc: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Σ masked NLL, Σ masked correct) of one chunk: fp32 logits from
     compute-dtype operands, softcapped; argmax takes the first maximum,
-    as jax's does."""
-    logits = _softcap(cfg, _fp32_product(hc, w))
+    as jax's does. In a sharded step the vocab-parallel logits are
+    gathered over the vocab first (`_gathered`), so the softmax
+    and argmax run on whole rows."""
+    logits = _gathered(_softcap(cfg, _fp32_product(hc, w)), -1)
     logp = torch.log_softmax(logits, -1)
     nll = -logp.gather(-1, tc[..., None])[..., 0]
     correct = (logits.argmax(-1) == tc).float()
@@ -337,7 +428,8 @@ def _ce_chunk(cfg: ArchConfig, hc: torch.Tensor, tc: torch.Tensor,
 
 def lm_loss(params, cfg: ArchConfig, batch: Dict, *,
             attn_fn: Callable = multi_head_attention, remat: bool = True,
-            loss_chunk: int = 512, moe_aux_weight: float = 0.01
+            loss_chunk: int = 512, moe_aux_weight: float = 0.01,
+            act_spec=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token (or frame) cross-entropy, plus the MoE aux term
     weighted by `moe_aux_weight` per group. Returns (loss, metrics:
@@ -349,7 +441,8 @@ def lm_loss(params, cfg: ArchConfig, batch: Dict, *,
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)
     h, aux = _run_body(params, cfg, h, positions=positions, attn_fn=attn_fn,
-                       caches=None, decode_pos=None, remat=remat)
+                       caches=None, decode_pos=None, remat=remat,
+                       act_spec=act_spec)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     targets, mask = _targets(cfg, batch, B, S, h.device)
 
@@ -379,14 +472,15 @@ def lm_loss(params, cfg: ArchConfig, batch: Dict, *,
 
 
 def encode(params, cfg: ArchConfig, batch: Dict, *,
-           attn_fn: Callable = multi_head_attention) -> torch.Tensor:
+           attn_fn: Callable = multi_head_attention,
+           act_spec=None) -> torch.Tensor:
     """Encoder-only forward (hubert's "prefill"): frame logits (B, S, V)
     in fp32 from compute-dtype operands, without the logit softcap, as
     the reference's `encode` returns them."""
     h = _embed_inputs(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _ = _run_body(params, cfg, h, positions=positions, attn_fn=attn_fn,
-                     caches=None, decode_pos=None)
+                     caches=None, decode_pos=None, act_spec=act_spec)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _head(params, cfg, h)
 
@@ -395,20 +489,21 @@ def encode(params, cfg: ArchConfig, batch: Dict, *,
 # serving
 # ----------------------------------------------------------------------
 def prefill(params, cfg: ArchConfig, batch: Dict, caches: Tree, *,
-            attn_fn: Callable = multi_head_attention
+            attn_fn: Callable = multi_head_attention, act_spec=None
             ) -> Tuple[torch.Tensor, Tree]:
     """Run the prompt through the model, writing `caches` in place.
     Returns (last-position logits (B, V) fp32, caches)."""
     h = _embed_inputs(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _ = _run_body(params, cfg, h, positions=positions, attn_fn=attn_fn,
-                     caches=caches, decode_pos=None)
+                     caches=caches, decode_pos=None, act_spec=act_spec)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 
 
 def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor,
-                caches: Tree, pos: int) -> Tuple[torch.Tensor, Tree]:
+                caches: Tree, pos: int, *, act_spec=None
+                ) -> Tuple[torch.Tensor, Tree]:
     """One decode step. tokens: (B, 1) int; pos: int, the position of
     the incoming token. Returns (logits (B, V) fp32, caches, written in
     place). The position stays a host int, so a decode loop issues no
@@ -417,11 +512,11 @@ def decode_step(params, cfg: ArchConfig, tokens: torch.Tensor,
     if cfg.input_mode == "embeddings":
         raise ValueError("encoder-only archs have no decode step")
     pos = int(pos)
-    h = params["embed"][tokens.long()].to(cfg.dtype)
+    h = _lookup(params["embed"], tokens).to(cfg.dtype)
     if cfg.emb_scale_by_sqrt_dim:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype)
     positions = torch.arange(pos, pos + 1, device=h.device)
     h, _ = _run_body(params, cfg, h, positions=positions, attn_fn=None,
-                     caches=caches, decode_pos=pos)
+                     caches=caches, decode_pos=pos, act_spec=act_spec)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h[:, 0]), caches

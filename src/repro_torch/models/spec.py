@@ -4,9 +4,11 @@
 Every block declares its parameters as a tree (nested dicts) of
 `TensorSpec`s: shape, logical axes and init. `init_tree` materializes
 real tensors from it on an explicit device with an explicit
-`torch.Generator`; `spec_bytes` / `spec_params` count it. The
-reference's `shape_tree` and `pspec_tree` (ahead-of-time shapes and
-sharding specs) wait for the port's tooling slice (ROADMAP A8).
+`torch.Generator`; `spec_bytes` / `spec_params` count it.
+`shape_tree` gives meta-device tensors of each spec's shape and dtype
+(nothing allocated: the dry-run's shapes), `pspec_tree` each leaf's
+sharding spec, a tuple of mesh-axis entries per dim — the counterpart
+of jax's `PartitionSpec` — through a rules dict of `dist.sharding`.
 
 `params_from_numpy` / `params_to_numpy` carry a tree across packages:
 the reference's params (or caches) as numpy leaves become tensors here,
@@ -16,7 +18,7 @@ the reference's own params over this way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,9 +41,36 @@ class TensorSpec:
                              f"differ in rank")
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, TensorSpec)
+
+
 def map_specs(fn: Callable[[TensorSpec], Any], tree):
     """fn over the TensorSpec leaves of a nested-dict tree."""
     return tree_map(fn, tree)
+
+
+def shape_tree(tree):
+    """Meta-device tensors with each spec's shape and dtype: shapes for
+    tracing, no storage allocated."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), tree)
+
+
+def is_pspec(x) -> bool:
+    """A leaf of a `pspec_tree` (a tuple of mesh-axis entries)."""
+    return isinstance(x, tuple)
+
+
+def pspec_tree(tree, rules: Dict[str, Any]):
+    """Each leaf's sharding spec: a tuple with one entry per dim, the
+    mesh axis (str), tuple of mesh axes, or None (replicated) that
+    `rules` maps the dim's logical axis to. Walk the result with
+    `tree_leaves(..., is_leaf=is_pspec)`."""
+    def one(s: TensorSpec):
+        return tuple(rules.get(a) if a is not None else None
+                     for a in s.axes)
+    return map_specs(one, tree)
 
 
 def init_tree(tree, generator: torch.Generator, device):

@@ -42,8 +42,10 @@ def zeros(shape: Sequence[int],
 # gradient accumulation: microbatches in turn, fp32 grads accumulated
 # ----------------------------------------------------------------------
 def accumulate_gradients(loss_fn: Callable, params: Tree, batch: Tree,
-                         num_microbatches: int, *loss_args, **loss_kw
-                         ) -> Tuple[torch.Tensor, Tree, Tree]:
+                         num_microbatches: int, *loss_args,
+                         split: Optional[Callable] = None,
+                         grad_layout: Optional[Callable] = None,
+                         **loss_kw) -> Tuple[torch.Tensor, Tree, Tree]:
     """loss_fn(params, microbatch, *args, **kw) -> (loss, aux).
 
     `batch` leaves must have a leading dim divisible by
@@ -53,6 +55,11 @@ def accumulate_gradients(loss_fn: Callable, params: Tree, batch: Tree,
     num_microbatches <= 1 one gradient call, its grads in the params'
     dtypes; else the microbatches run in turn (one backward graph live
     at a time) and their grads accumulate in fp32.
+
+    Two hooks serve a sharded step (`dist/steps.py` with a mesh):
+    `split(batch, m)` gives the m microbatches (default: microbatch i
+    is rows i·B/m … (i+1)·B/m of every leaf), `grad_layout(g, p)` each
+    gradient in its param's layout before it is summed (default: g).
     """
     leaves = tree_leaves(params)
 
@@ -63,6 +70,8 @@ def accumulate_gradients(loss_fn: Callable, params: Tree, batch: Tree,
         grads = torch.autograd.grad(loss, tree_leaves(live),
                                     allow_unused=True,
                                     materialize_grads=True)
+        if grad_layout is not None:
+            grads = [grad_layout(g, p) for g, p in zip(grads, leaves)]
         return loss.detach(), tree_map(torch.Tensor.detach, aux), grads
 
     m = int(num_microbatches)
@@ -70,16 +79,18 @@ def accumulate_gradients(loss_fn: Callable, params: Tree, batch: Tree,
         loss, aux, grads = grad_call(batch)
         return loss, aux, tree_unflatten(params, grads)
 
-    def split(x):
-        if x.shape[0] % m:
-            raise ValueError(f"batch {x.shape[0]} not divisible by "
-                             f"microbatches={m}")
-        return x.reshape((m, x.shape[0] // m) + tuple(x.shape[1:]))
-    micro = tree_map(split, batch)
+    def rows(batch, m):
+        def split_leaf(x):
+            if x.shape[0] % m:
+                raise ValueError(f"batch {x.shape[0]} not divisible by "
+                                 f"microbatches={m}")
+            return x.reshape((m, x.shape[0] // m) + tuple(x.shape[1:]))
+        micro = tree_map(split_leaf, batch)
+        return [tree_map(lambda x: x[i], micro) for i in range(m)]
     loss_sum, aux_sum = 0.0, None
     g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-    for i in range(m):
-        loss, aux, grads = grad_call(tree_map(lambda x: x[i], micro))
+    for mb in (split or rows)(batch, m):
+        loss, aux, grads = grad_call(mb)
         for acc, g in zip(g_sum, grads):
             acc.add_(g.float())
         loss_sum = loss_sum + loss

@@ -7,7 +7,7 @@ loss-scale state and the checkpoint layout all walk trees this way, so
 leaf order and structure match the reference's."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 Tree = Any
 
@@ -16,13 +16,19 @@ def is_namedtuple(t) -> bool:
     return isinstance(t, tuple) and hasattr(t, "_fields")
 
 
-def tree_leaves(tree: Tree) -> List[Any]:
+def tree_leaves(tree: Tree, is_leaf: Optional[Callable] = None
+                ) -> List[Any]:
+    """The leaves in order; `is_leaf(x)` true stops the walk at x (a
+    tree of sharding specs keeps each spec tuple whole)."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree)
+                for x in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
+        return [x for v in tree for x in tree_leaves(v, is_leaf)]
     return [tree]
 
 

@@ -20,6 +20,18 @@
     {"kind": "steps", "inputs": <npz>, "cases": [[layout, compression,
      microbatches], ...], "steps": n, "out": <dir>}  — the bare
      `make_gcn_train_step` on the batches and params of `inputs`.
+    {"kind": "sharded_lm", "arch": <SMOKE arch>, "mesh": [data, model],
+     "fsdp": bool, "microbatches": m, "batch": B, "seq": S, "inputs":
+     <npz>, "out": <dir>} — one LM `make_train_step` on a DeviceMesh of
+     the world against the unsharded step, both from the train state
+     and tokens of `inputs` (`tree_npz`); rank 0 writes
+     <out>/sharded_lm.json (errors per part, the params' layouts) and
+     <out>/sharded_lm.npz (the sharded step's new state and metrics).
+    {"kind": "sharded_serve", "arch", "mesh", "batch", "seq", "gen",
+     "inputs", "out"} — a sharded prefill and `gen` decode steps against
+     the unsharded ones from the params and tokens of `inputs`; rank 0
+     writes <out>/sharded_serve.json and <out>/sharded_serve.npz (the
+     sharded logits of every step and the last caches).
   Every process has a timeout and is killed if it outlives it.
 
 Inputs and results cross as files in a directory the caller owns.
@@ -255,6 +267,174 @@ def _steps(task, rank, world):
                               f"{layout}_{comp}_{m}_rank{rank}.npz"), **out)
 
 
+def tree_npz(tree, prefix: str = "leaf") -> dict:
+    """The leaves of a tree (in `tree_leaves` order, the reference's
+    too: dict keys sorted) as flat npz keys `<prefix>_<i>`."""
+    from repro_torch.nn.tree import tree_leaves
+    return {f"{prefix}_{i}": leaf for i, leaf in enumerate(tree_leaves(tree))}
+
+
+def npz_tree(data, template, prefix: str = "leaf"):
+    """The inverse of `tree_npz`: `template`'s nesting, tensors from
+    `data`."""
+    import torch
+    from repro_torch.nn.tree import tree_leaves, tree_unflatten
+    n = len(tree_leaves(template))
+    return tree_unflatten(template, [torch.from_numpy(data[f"{prefix}_{i}"])
+                                     for i in range(n)])
+
+
+def _full_numpy(tree, prefix: str = "leaf") -> dict:
+    """`tree_npz` of the global values of a tree of (D)Tensors."""
+    return {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+            .detach().float().numpy() for k, v in tree_npz(tree, prefix)
+            .items()}
+
+
+def _rel(got, want) -> float:
+    import torch
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float((got - want).abs().max()) / scale if scale else \
+        float((got - want).abs().max())
+
+
+def _sharded_lm(task, rank, world):
+    """One sharded LM train step vs the unsharded one, fp32 compute.
+    AdamW runs without clipping, so the first moment after one step is
+    (1 - b1) times the gradient and the gradient is compared through it;
+    its eps is 1e-4 (task "eps"), which keeps the first update Lipschitz
+    in the gradient: at 1e-8 an element whose gradient is within
+    rounding of zero may move its param by ±lr either way."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
+                                           make_rules, shardings_for)
+    from repro_torch.dist.steps import make_train_step, spec_train_state
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.nn.optim import adamw
+    from repro_torch.nn.tree import tree_leaves
+    from repro_torch.runtime.checkpoint import _flatten_with_paths
+
+    cfg = dataclasses.replace(get_arch(task["arch"], smoke=True),
+                              compute_dtype=task.get("dtype", "float32"))
+    B, S = task["batch"], task["seq"]
+    mesh = make_debug_mesh(*task["mesh"], device_type="cpu")
+    policy = CellPolicy(fsdp=task["fsdp"], microbatches=task["microbatches"],
+                        loss_chunk=S // 2)
+    rules = make_rules(mesh, cfg, ShapeConfig("t", "train", S, B), policy)
+    specs = spec_train_state(cfg)
+    data = np.load(task["inputs"])
+    state = npz_tree(data, specs)
+    tokens = torch.from_numpy(data["tokens"])
+    opt = adamw(1e-3, weight_decay=0.01, eps=task.get("eps", 1e-4))
+    ref, ref_m = make_train_step(
+        cfg, dataclasses.replace(policy, fsdp=False), opt)(
+            state, {"tokens": tokens})
+    dstate = distribute_tree(state, shardings_for(specs, mesh, rules))
+    new, m = make_train_step(cfg, policy, opt,
+                             act_spec=(rules["batch"], None, None),
+                             mesh=mesh)(dstate, {"tokens": tokens})
+    out = {"metrics": {k: _rel(m[k], ref_m[k]) for k in ref_m},
+           "params": 0.0, "grads": 0.0, "nu": 0.0, "all_dtensor": True,
+           "layouts": {}}
+    for (key, got), want in zip(_flatten_with_paths(new),
+                                tree_leaves(ref)):
+        out["all_dtensor"] &= isinstance(got, DTensor)
+        g = got.full_tensor() if isinstance(got, DTensor) else got
+        part = key.split("/")[0]
+        if part == "mu":
+            part, g, want = "grads", g / 0.1, want / 0.1
+        if part == "params":
+            # zero-initialised leaves (norm scales) hold one update of
+            # ~lr: their error is measured against max(1, max|p|)
+            err = float((g.float() - want.float()).abs().max()) / max(
+                1.0, float(want.abs().max()))
+            out[part] = max(out[part], err)
+        elif part in out:
+            out[part] = max(out[part], _rel(g.float(), want.float()))
+
+        if part == "params":
+            out["layouts"][key] = [str(p) for p in got.placements]
+    out["step"] = int(new["step"].full_tensor())
+    arrays = _full_numpy(new)           # a collective: every rank gathers
+    if rank == 0:
+        os.makedirs(task["out"], exist_ok=True)
+        with open(os.path.join(task["out"], "sharded_lm.json"), "w") as f:
+            json.dump(out, f)
+        np.savez(os.path.join(task["out"], "sharded_lm.npz"), **arrays,
+                 **{f"metric_{k}": float(v) for k, v in m.items()})
+
+
+def _sharded_serve(task, rank, world):
+    """A sharded prefill (S - 1 prompt tokens, then) and decode steps
+    against the unsharded ones, fp32 compute, from the same params; rank
+    0 writes <out>/sharded_serve.json (errors per part)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
+                                           make_rules, shardings_for)
+    from repro_torch.dist.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import spec_caches, spec_params
+    from repro_torch.models.spec import init_tree
+    from repro_torch.nn.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(task["arch"], smoke=True),
+                              compute_dtype="float32")
+    B, S, gen = task["batch"], task["seq"], task["gen"]
+    mesh = make_debug_mesh(*task["mesh"], device_type="cpu")
+    rules = make_rules(mesh, cfg, ShapeConfig("t", "prefill", S + gen, B),
+                       CellPolicy())
+    act = (rules["batch"], None, None)
+    p_specs = spec_params(cfg)
+    c_specs = spec_caches(cfg, B, S + gen)
+    data = np.load(task["inputs"])
+    params = npz_tree(data, p_specs)
+    toks = torch.from_numpy(data["tokens"])
+
+    def run(p, caches, prefill, decode):
+        logits, caches = prefill(p, {"tokens": toks[:, :S]}, caches)
+        out = [logits]
+        for i in range(gen):
+            _, logits, caches = decode(p, toks[:, S + i:S + i + 1], caches,
+                                       S + i)
+            out.append(logits)
+        return out, caches
+
+    zeros = lambda: init_tree(c_specs, torch.Generator(), "cpu")  # noqa: E731
+    want, w_caches = run(params, zeros(), make_prefill_step(cfg),
+                         make_decode_step(cfg))
+    got, g_caches = run(
+        distribute_tree(params, shardings_for(p_specs, mesh, rules)),
+        distribute_tree(zeros(), shardings_for(c_specs, mesh, rules)),
+        make_prefill_step(cfg, CellPolicy(), act_spec=act),
+        make_decode_step(cfg, CellPolicy(), act_spec=act))
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    out = {"logits": max(_rel(full(g).float(), w.float())
+                         for g, w in zip(got, want)),
+           "caches": max(_rel(full(g).float(), w.float()) for g, w in zip(
+               tree_leaves(g_caches), tree_leaves(w_caches))),
+           "kv_seq": rules["kv_seq"], "kv_heads": rules["kv_heads"]}
+    arrays = dict(_full_numpy(g_caches, "cache"),
+                  **{f"logits_{j}": full(t).float().numpy()
+                     for j, t in enumerate(got)})
+    if rank == 0:
+        os.makedirs(task["out"], exist_ok=True)
+        with open(os.path.join(task["out"], "sharded_serve.json"), "w") as f:
+            json.dump(out, f)
+        np.savez(os.path.join(task["out"], "sharded_serve.npz"), **arrays)
+
+
 def main(argv):
     import torch
     import torch.distributed as dist
@@ -269,6 +449,10 @@ def main(argv):
                     _experiment(task, rank)
                 elif task["kind"] == "wrapper":
                     _wrapper(task, rank)
+                elif task["kind"] == "sharded_lm":
+                    _sharded_lm(task, rank, world)
+                elif task["kind"] == "sharded_serve":
+                    _sharded_serve(task, rank, world)
                 else:
                     _steps(task, rank, world)
     finally:

@@ -23,7 +23,10 @@ NEW_MODULES = ("repro_torch.models.gla", "repro_torch.launch.train",
                "repro_torch.data.clustered_batching",
                "repro_torch.dist.sharding",
                "repro_torch.configs.xlstm_1_3b",
-               "repro_torch.configs.zamba2_7b")
+               "repro_torch.configs.zamba2_7b",
+               "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+               "repro_torch.launch.dryrun_gcn",
+               "repro_torch.launch.cost_analysis")
 
 
 def test_no_source_line_imports_jax_or_the_reference():
@@ -62,6 +65,27 @@ def test_every_module_imports_without_jax_or_the_reference(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[-1]) >= 25     # every module was walked
+
+
+def test_importing_the_dry_runs_starts_no_process_group():
+    """The dry-runs join a fake process group in `main()`, never at
+    import: importing them leaves torch.distributed untouched."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import torch.distributed as dist
+        import repro_torch.launch.dryrun, repro_torch.launch.dryrun_gcn
+        import repro_torch.launch.cost_analysis, repro_torch.launch.mesh
+        assert not dist.is_initialized()
+        assert "torch.testing._internal.distributed.fake_pg" \
+            not in sys.modules
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", \
+        out.stderr[-3000:]
 
 
 @pytest.fixture

@@ -322,9 +322,9 @@ def test_spec_train_state_matches_reference():
 
 
 def test_train_step_raises_for_fsdp():
-    """The port trains on one device: a policy asking for FSDP sharding
-    raises, naming the tooling queue, instead of training unsharded."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    """FSDP shards the state over a device mesh: a policy asking for it
+    without a mesh raises instead of training unsharded."""
+    with pytest.raises(ValueError, match="pass mesh="):
         make_train_step(get_arch("llama3.2-1b", smoke=True),
                         CellPolicy(fsdp=True), adamw(1e-2))
 

@@ -100,9 +100,12 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path, capsys):
 
 
 def test_mesh_other_than_host_raises_naming_the_roadmap():
-    with pytest.raises(SystemExit, match=r"ROADMAP A7"):
-        train.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
-                    "--mesh", "pod"])
+    """The production meshes need their 256 or 512 ranks: one process
+    stops with a message naming them, never training on one device."""
+    for mesh, n in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(SystemExit, match=rf"needs {n} ranks"):
+            train.main(["--arch", "llama3.2-1b", "--smoke", "--device",
+                        "cpu", "--mesh", mesh])
 
 
 def test_cli_defaults_to_cuda():
