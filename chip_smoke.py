@@ -226,11 +226,21 @@ this script. Phases, each of which must pass (no failure is caught):
    recompute). Then the bf16 step at 4 layers, B 2 x 2048, unsharded
    and sharded in turns (plain, sharded, sharded, plain): step ms, peak
    memory, and each sharded run's flash launches counted from 0 (4
-   layers x 2 x the steps). (b) `launch/train.py --mesh host` under
-   `torchrun --nproc_per_node 1` (NCCL, a (1, 1) mesh) for 2 steps.
-   (c) Once (a) is done, beside (b), on the host's CPU (no card
-   visible), `launch/dryrun.py --arch llama3.2-1b --shape train_4k
-   --mesh pod` and `launch/dryrun_gcn.py --variant all`
+   layers x 2 x the steps). (d) On the same world, `launch.serve.main`
+   with phase 8's argv and `--mesh host`: DTensor params and caches,
+   flash under `local_map`, the vocab-parallel argmax; 16 flash
+   launches in prefill and none in decode (counted from 0), the prefill
+   logits bit-equal to phase 8's (else within twice the bf16 floor) and
+   the same greedy tokens (else equal in each row up to the first step
+   whose top-2 gap in phase 8's run, replayed, is within twice that
+   bound); prefill s and decode tok/s beside phase 8's.
+   (b) `launch/train.py --mesh host` under `torchrun --nproc_per_node
+   1` (NCCL, a (1, 1) mesh) for 2 steps, then `launch/serve.py --mesh
+   host` the same way (B 2 x 512, 8 tokens): rc 0 and rank 0's banner.
+   (c) Once (a) and (d) are done, beside (b), on the host's CPU (no card
+   visible), `launch/dryrun.py --shape train_4k --mesh pod` for
+   llama3.2-1b and xlstm-1.3b (full depth) and `launch/dryrun_gcn.py
+   --variant all`
    on a fake world of 256 ranks: per-device FLOPs, bytes, collective
    bytes, peak bytes and the roofline time at the H100 constants of
    `launch/mesh.py`; the GCN `base` variant within 2% of the reference's
@@ -344,6 +354,17 @@ SHARD_CLI = ["--arch", "llama3.2-1b", "--mesh", "host", "--steps", "2",
              "--batch", "2", "--seq", "512", "--log-every", "1",
              "--seed", "0"]
 SHARD_TIMEOUT_S = 300
+# (c)'s LM cells: llama3.2-1b and xlstm-1.3b train_4k at full depth
+# (xlstm's traces in ≈90 s on a free host core: its sLSTM loop is one
+# op per layer on local shards)
+DRYRUN_LM = ("llama3.2-1b", "xlstm-1.3b")
+DRYRUN_TIMEOUT_S = 600
+# (d) the serving CLI on the mesh: phase 8's argv in process (compared
+# with phase 8's run), and a shorter one under torchrun
+SHARD_SERVE_CLI = ["--arch", "llama3.2-1b", "--mesh", "host", "--batch",
+                   "2", "--prompt-len", "512", "--gen", "8", "--seed", "0"]
+# what phase 8's one-device serving returned (tensors; not in the JSON)
+_PHASE8: dict = {}
 # the reference's own 1-device Cluster-GCN step at the PPI-SOTA shape:
 # `analyze_hlo` of `repro.launch.dryrun_gcn.build("base")` on a 1 x 1
 # mesh (jax 0.9, CPU); the port's per-device count on 16 x 16 matches it
@@ -1260,6 +1281,9 @@ def phase_lm_serve(results: dict) -> int:
             or out["launches"] != {
             "prefill": cfg.num_layers, "decode": 0} or not finite:
         raise AssertionError(f"LM serving: {results['lm_serve']}")
+    # phase 17d serves the same argv on a mesh and compares with this run
+    _PHASE8.update({k: out[k] for k in ("prefill_logits", "tokens",
+                                        "prefill_s", "decode_tok_s")})
     del out
 
     B, S, G = 4, 2048, 32
@@ -3038,6 +3062,32 @@ def _shard_cli(smi: str) -> dict:
     return res
 
 
+def _shard_serve_cli(smi: str) -> dict:
+    """17d: `launch/serve.py --mesh host` under torchrun, one rank."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_addr", "127.0.0.1", "--master_port",
+           str(_free_port()), "-m", "repro_torch.launch.serve",
+           *SHARD_SERVE_CLI]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=SHARD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = [line.strip() for line in out.stdout.splitlines()
+             if line.startswith("[serve]")]
+    banner = [line for line in lines if "params, mesh" in line]
+    res = dict(rc=out.returncode, seconds=seconds, lines=lines)
+    print(f"[shard] 17d torchrun --nproc_per_node 1 launch.serve "
+          f"{' '.join(SHARD_SERVE_CLI)}: rc {out.returncode} in "
+          f"{seconds:.1f} s; " + "; ".join(lines) + f"  ({smi})")
+    if not (out.returncode == 0 and banner
+            and "{'data': 1, 'model': 1} on cuda" in banner[0]
+            and any("prefill" in line for line in lines)):
+        raise AssertionError(f"serve --mesh host under torchrun: {res}\n"
+                             f"{out.stderr[-3000:]}")
+    return res
+
+
 def _dryrun_start(args: list):
     """Start a dry-run CLI on the host's CPU (no card visible to it), so
     it runs beside the card's work; `_dryrun_finish` reads it back."""
@@ -3049,12 +3099,12 @@ def _dryrun_start(args: list):
 
 
 def _dryrun_finish(started, records: list) -> list:
-    """Wait for a started dry-run (killed past SHARD_TIMEOUT_S) and read
+    """Wait for a started dry-run (killed past DRYRUN_TIMEOUT_S) and read
     back its records (paths under results/dryrun_torch)."""
     args, t0, proc = started
     try:
         out, err = proc.communicate(
-            timeout=max(1.0, SHARD_TIMEOUT_S - (time.perf_counter() - t0)))
+            timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -3073,72 +3123,175 @@ def _dryrun_finish(started, records: list) -> list:
 
 def _shard_step(smi: str) -> dict:
     """17a: the sharded train step on a 1 x 1 mesh over an NCCL world of
-    1 against the unsharded one (fp32, bf16), then the timed bf16 step."""
+    1 (the caller's) against the unsharded one (fp32, bf16), then the
+    timed bf16 step."""
     import torch
-    import torch.distributed as dist
     from repro_torch.configs import get_arch
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.mesh import make_debug_mesh
 
     full = get_arch("llama3.2-1b")
     P = SHARD_PARITY
+    mesh = make_debug_mesh(1, 1, device_type="cuda")
+    cut = f"{P['layers']} of {full.num_layers} layers, full width"
+    batch = {"tokens": torch.from_numpy(TokenPipeline(
+        full.vocab_size, P["batch"], P["seq"], seed=1).batch_at(0)[
+            "tokens"]).cuda()}
+    pairs = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(full, num_layers=P["layers"],
+                                  compute_dtype=dt)
+        pairs[dt] = _shard_pair(cfg, mesh, batch, cut)
+    f32, b16 = pairs["float32"], pairs["bfloat16"]
+    floor = _grad_rel(b16["plain"]["grads"], f32["plain"]["grads"])
+    loss_floor = abs(b16["plain"]["loss"] - f32["plain"]["loss"]) \
+        / abs(f32["plain"]["loss"])
+    per_step = P["layers"] * 2            # forward and remat recompute
+    a = dict(cut=cut, shape=f"B {P['batch']} x {P['seq']}",
+             fp32={k: f32[k] for k in ("loss_rel", "grad_rel",
+                                       "params_rel", "all_dtensor",
+                                       "launches")},
+             bf16={k: b16[k] for k in ("loss_rel", "grad_rel",
+                                       "params_rel", "all_dtensor",
+                                       "launches")},
+             bf16_floor=floor, bf16_bound=2 * floor,
+             bf16_loss_floor=loss_floor,
+             launches_expected=per_step)
+    for dt, r in (("fp32", a["fp32"]), ("bf16", a["bf16"])):
+        print(f"[shard] 17a sharded step (NCCL world of 1, mesh 1 x 1, "
+              f"FSDP, every state leaf a DTensor: {r['all_dtensor']}) vs "
+              f"unsharded, llama3.2-1b {cut}, {a['shape']}, {dt}: loss "
+              f"rel {r['loss_rel']:.3e}, grads {r['grad_rel']:.3e}, new "
+              f"params {r['params_rel']:.3e} (bound "
+              + (f"{STEP_TOL}·max(1, max|g|)" if dt == "fp32" else
+                 f"2 x the bf16 floor = {a['bf16_bound']:.3e}, loss "
+                 f"{2 * loss_floor:.3e}")
+              + f"); flash launches {r['launches'][0]} (sm90 "
+              f"{r['launches'][1]}; {per_step} expected)  ({smi})")
+    ok32 = (f32["all_dtensor"] and f32["loss_rel"] <= STEP_TOL
+            and f32["grad_rel"] <= STEP_TOL
+            and f32["params_rel"] <= STEP_TOL
+            and f32["launches"] == (per_step, 0, 0, 0))
+    ok16 = (b16["all_dtensor"] and b16["grad_rel"] <= 2 * floor
+            and b16["loss_rel"] <= 2 * loss_floor
+            and b16["launches"] == (per_step, per_step, 0, 0))
+    if not (ok32 and ok16):
+        raise AssertionError(f"sharded train step: {a}")
+    del pairs, f32, b16
+    torch.cuda.empty_cache()
+    cfg_t = dataclasses.replace(full, num_layers=SHARD_TIMED["layers"])
+    a["timed"] = _shard_timed(cfg_t, mesh, smi)
+    torch.cuda.empty_cache()
+    return a
+
+
+@contextlib.contextmanager
+def _nccl_world():
+    """An NCCL process group of one rank (this process, cuda:0), torn
+    down on the way out."""
+    import torch
+    import torch.distributed as dist
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=torch.device("cuda", 0))
     try:
-        mesh = make_debug_mesh(1, 1, device_type="cuda")
-        cut = f"{P['layers']} of {full.num_layers} layers, full width"
-        batch = {"tokens": torch.from_numpy(TokenPipeline(
-            full.vocab_size, P["batch"], P["seq"], seed=1).batch_at(0)[
-                "tokens"]).cuda()}
-        pairs = {}
-        for dt in ("float32", "bfloat16"):
-            cfg = dataclasses.replace(full, num_layers=P["layers"],
-                                      compute_dtype=dt)
-            pairs[dt] = _shard_pair(cfg, mesh, batch, cut)
-        f32, b16 = pairs["float32"], pairs["bfloat16"]
-        floor = _grad_rel(b16["plain"]["grads"], f32["plain"]["grads"])
-        loss_floor = abs(b16["plain"]["loss"] - f32["plain"]["loss"]) \
-            / abs(f32["plain"]["loss"])
-        per_step = P["layers"] * 2            # forward and remat recompute
-        a = dict(cut=cut, shape=f"B {P['batch']} x {P['seq']}",
-                 fp32={k: f32[k] for k in ("loss_rel", "grad_rel",
-                                           "params_rel", "all_dtensor",
-                                           "launches")},
-                 bf16={k: b16[k] for k in ("loss_rel", "grad_rel",
-                                           "params_rel", "all_dtensor",
-                                           "launches")},
-                 bf16_floor=floor, bf16_bound=2 * floor,
-                 bf16_loss_floor=loss_floor,
-                 launches_expected=per_step)
-        for dt, r in (("fp32", a["fp32"]), ("bf16", a["bf16"])):
-            print(f"[shard] 17a sharded step (NCCL world of 1, mesh 1 x 1, "
-                  f"FSDP, every state leaf a DTensor: {r['all_dtensor']}) vs "
-                  f"unsharded, llama3.2-1b {cut}, {a['shape']}, {dt}: loss "
-                  f"rel {r['loss_rel']:.3e}, grads {r['grad_rel']:.3e}, new "
-                  f"params {r['params_rel']:.3e} (bound "
-                  + (f"{STEP_TOL}·max(1, max|g|)" if dt == "fp32" else
-                     f"2 x the bf16 floor = {a['bf16_bound']:.3e}, loss "
-                     f"{2 * loss_floor:.3e}")
-                  + f"); flash launches {r['launches'][0]} (sm90 "
-                  f"{r['launches'][1]}; {per_step} expected)  ({smi})")
-        ok32 = (f32["all_dtensor"] and f32["loss_rel"] <= STEP_TOL
-                and f32["grad_rel"] <= STEP_TOL
-                and f32["params_rel"] <= STEP_TOL
-                and f32["launches"] == (per_step, 0, 0, 0))
-        ok16 = (b16["all_dtensor"] and b16["grad_rel"] <= 2 * floor
-                and b16["loss_rel"] <= 2 * loss_floor
-                and b16["launches"] == (per_step, per_step, 0, 0))
-        if not (ok32 and ok16):
-            raise AssertionError(f"sharded train step: {a}")
-        del pairs, f32, b16
-        torch.cuda.empty_cache()
-        cfg_t = dataclasses.replace(full, num_layers=SHARD_TIMED["layers"])
-        a["timed"] = _shard_timed(cfg_t, mesh, smi)
-        return a
+        yield
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
+
+
+def _phase8_margins(tokens):
+    """Phase 8's greedy run replayed on one device, its tokens fed back:
+    (B, gen) numpy, the gap between the two largest logits each token
+    was taken from, over that step's max|logits|."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch import serve
+
+    cfg = get_arch("llama3.2-1b")
+    B, S = tokens.shape[0], int(LM_ARGV[LM_ARGV.index("--prompt-len") + 1])
+    G = tokens.shape[1]
+    params, caches = serve.init_serving(cfg, B, S + G, 0, "cuda")
+    batch = serve.make_batch(cfg, B, S, 0, "cuda")
+    tok = torch.from_numpy(tokens).cuda()
+
+    def gap(lg):
+        top = lg.topk(2, -1).values
+        return ((top[:, 0] - top[:, 1]) / lg.abs().max()).cpu()
+    with torch.no_grad():
+        logits, caches = make_prefill_step(cfg)(params, batch, caches)
+        out = [gap(logits)]
+        decode = make_decode_step(cfg)
+        for i in range(G - 1):
+            _, logits, caches = decode(params, tok[:, i:i + 1], caches, S + i)
+            out.append(gap(logits))
+    del params, caches
+    torch.cuda.empty_cache()
+    return torch.stack(out, 1).numpy()
+
+
+def _shard_serve(smi: str, results: dict) -> dict:
+    """17d: `launch.serve.main` with phase 8's argv and `--mesh host` in
+    this process's NCCL world of 1 (a 1 x 1 mesh: DTensor params and
+    caches, flash under `local_map`, the vocab-parallel argmax) against
+    phase 8's one-device run of the same argv: flash launches, the
+    prefill logits (bit-equal expected; else within twice the bf16
+    floor) and the greedy tokens (all equal; else equal in each row up
+    to the first step whose top-2 gap is within twice that bound)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    layers = get_arch("llama3.2-1b").num_layers
+    print(f"[shard] 17d serve {' '.join(LM_ARGV)} --mesh host")
+    # --- the main path: the launch counts start at 0 -------------------
+    _zero_counts()
+    out = serve.main(LM_ARGV + ["--mesh", "host"])
+    n = _counts()
+    # ---------------------------------------------------------------------
+    p8 = _PHASE8
+    bound = 2 * results["lm_parity"]["bf16_plain_vs_fp32"]
+    got, want = out["prefill_logits"], p8["prefill_logits"]
+    bit_equal = bool(torch.equal(got, want))
+    rel = _rel(got, want)
+    tokens_equal = bool(np.array_equal(out["tokens"], p8["tokens"]))
+    agree = None
+    if not bit_equal:
+        gaps = _phase8_margins(p8["tokens"])
+        close = gaps < 2 * bound
+        agree = [int(np.argmax(row)) if row.any() else len(row)
+                 for row in close]
+    res = dict(mesh=out["mesh"], launches=out["launches"],
+               launches_total=n[0], launches_sm90=n[1],
+               prefill_s=out["prefill_s"], decode_tok_s=out["decode_tok_s"],
+               phase8_prefill_s=p8["prefill_s"],
+               phase8_decode_tok_s=p8["decode_tok_s"],
+               prefill_bit_equal=bit_equal, prefill_rel=rel, bound=bound,
+               tokens_equal=tokens_equal, agree_until=agree,
+               finite=bool(torch.isfinite(got).all()
+                           and torch.isfinite(out["last_logits"]).all()))
+    print(f"[shard] 17d {out['mesh']}: prefill {out['prefill_s']:.4f} s "
+          f"(phase 8 {p8['prefill_s']:.4f} s), decode "
+          f"{out['decode_tok_s']:.1f} tok/s (phase 8 "
+          f"{p8['decode_tok_s']:.1f}); prefill logits bit-equal to phase "
+          f"8's: {bit_equal} (rel {rel:.3e}, bound {bound:.3e}); tokens "
+          f"equal: {tokens_equal}"
+          + ("" if agree is None else f" (rows agree up to {agree})")
+          + f"; flash launches prefill {out['launches']['prefill']}, decode "
+          f"{out['launches']['decode']} ({layers}, 0 expected; sm90 "
+          f"{n[1]})  ({smi})")
+    toks_ok = tokens_equal or (not bit_equal and all(
+        np.array_equal(g[:k], w[:k]) for g, w, k in zip(
+            out["tokens"], p8["tokens"], agree)))
+    if not (res["finite"] and out["launches"] == {"prefill": layers,
+                                                  "decode": 0}
+            and n[:2] == (layers, layers)
+            and (bit_equal or rel <= bound) and toks_ok):
+        raise AssertionError(f"sharded serving: {res}")
+    return res
 
 
 def phase_shard(results: dict, smi: str) -> dict:
@@ -3149,24 +3302,29 @@ def phase_shard(results: dict, smi: str) -> dict:
                                          PEAK_FLOPS_BF16)
 
     out = {}
-    out["sharded_step"] = _shard_step(smi)
-    # (c) starts once (a)'s timed steps are done: the dry-runs use the
-    # host's CPU only, so they run beside (b) and time nothing of it
+    with _nccl_world():
+        out["sharded_step"] = _shard_step(smi)
+        out["sharded_serve"] = _shard_serve(smi, results)
+    # (c) starts once (a) and (d)'s timed runs are done: the dry-runs use
+    # the host's CPU only, so they run beside the CLIs and time nothing
     t_dry = time.perf_counter()
-    dry_lm = _dryrun_start(["repro_torch.launch.dryrun", "--arch",
-                            "llama3.2-1b", "--shape", "train_4k", "--mesh",
-                            "pod", "--force"])
+    dry_lm = [_dryrun_start(["repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", "train_4k", "--mesh", "pod",
+                             "--force"]) for arch in DRYRUN_LM]
     dry_gcn = _dryrun_start(["repro_torch.launch.dryrun_gcn", "--variant",
                              "all"])
     try:
         out["cli"] = _shard_cli(smi)
+        out["serve_cli"] = _shard_serve_cli(smi)
     except BaseException:
-        for _, _, proc in (dry_lm, dry_gcn):
+        for _, _, proc in dry_lm + [dry_gcn]:
             proc.kill()
             proc.communicate()
         raise
 
-    lm = _dryrun_finish(dry_lm, ["llama3.2-1b__train_4k__pod__baseline.json"])
+    lm = [rec for arch, started in zip(DRYRUN_LM, dry_lm)
+          for rec in _dryrun_finish(started, [
+              f"{arch}__train_4k__pod__baseline.json"])]
     gcn_variants = ("base", "bf16", "ax", "tp", "q4", "sparse", "sparsek")
     gcn = _dryrun_finish(dry_gcn, [
         f"clustergcn-ppi-sota__train_cluster__pod__{v}.json"
@@ -3193,7 +3351,8 @@ def phase_shard(results: dict, smi: str) -> dict:
               f"{NVLINK_BW / 1e9:.0f} GB/s): {r['bound_s'] * 1e3:.3f} ms "
               f"(compute {r['compute_s'] * 1e3:.3f}, memory "
               f"{r['memory_s'] * 1e3:.3f}, collectives "
-              f"{r['collective_s'] * 1e3:.3f})")
+              f"{r['collective_s'] * 1e3:.3f}); traced in "
+              f"{row['trace_s']} s")
     base = gcn[0]
     n_ar = base["collectives"].get("all-reduce", {}).get("count")
     ratio = base["flops_per_device"] / GCN_REF_FLOPS
@@ -3208,8 +3367,11 @@ def phase_shard(results: dict, smi: str) -> dict:
     out["dryrun"] = dict(rows=rows, seconds=dry_s, gcn_ref_ratio=ratio)
     results["shard"] = out
     a = out["sharded_step"]
-    return a["fp32"]["launches"][0] + a["bf16"]["launches"][0] \
-        + sum(n[0] for n in a["timed"]["sharded"]["launches"])
+    return {"train sharded (phase 17)": a["fp32"]["launches"][0]
+            + a["bf16"]["launches"][0]
+            + sum(n[0] for n in a["timed"]["sharded"]["launches"]),
+            "serve sharded (phase 17d)":
+            out["sharded_serve"]["launches_total"]}
 
 
 def main() -> int:
@@ -3355,12 +3517,12 @@ def main() -> int:
         "launches": lm_launches + sum(
             sum(n.values()) if isinstance(n, dict) else n for n in (
                 *archs["launches"].values(), *ssm["launches"].values(),
-                *train_launches.values())) + shard_launches,
+                *train_launches.values())) + sum(shard_launches.values()),
         "launches_by_path": {"llama3.2-1b": results["lm_serve"]["launches"],
                              **archs["launches"], **ssm["launches"],
                              **{f"train {k}": n
                                 for k, n in train_launches.items()},
-                             "train sharded (phase 17)": shard_launches},
+                             **shard_launches},
         **numbers(flash_row),
         "fp32": dict(numbers(results["flash_main_fp32"]), **{
             k: results["flash_main_fp32"][k] for k in (

@@ -54,7 +54,7 @@ from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.dist.sharding import CellPolicy
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _gathered
+from repro_torch.models.layers import vocab_argmax
 from repro_torch.models.lm import (decode_step, encode, lm_loss, prefill,
                                    spec_params)
 from repro_torch.models.spec import TensorSpec, map_specs
@@ -218,12 +218,15 @@ def make_decode_step(cfg: ArchConfig, policy: CellPolicy = None,
                      act_spec=None) -> Callable:
     """(params, tokens (B, 1), caches, pos) -> (next greedy token (B, 1)
     int32, logits (B, V), caches). The argmax stays on the device, so a
-    decode loop never waits for the host."""
+    decode loop never waits for the host. On DTensors the logits keep
+    their vocab-sharded layout and the argmax reduces each shard's
+    maximum and its index (`layers.vocab_argmax`, jax's first
+    maximum)."""
     @_sharded
     def step(params, tokens, caches, pos):
         logits, caches = decode_step(params, cfg, tokens, caches, pos,
                                      act_spec=act_spec)
-        nxt = _gathered(logits, -1).argmax(-1).to(torch.int32)[:, None]
+        nxt = vocab_argmax(logits).to(torch.int32)[:, None]
         return nxt, logits, caches
     return step
 

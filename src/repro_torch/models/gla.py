@@ -23,17 +23,27 @@ the operand's dtype as jax's weak types round them). Where the math has
 a kink the reference's derivative is kept: |x| has derivative +1 at 0
 and max(a, b) splits a tie (`torch.maximum`, not `clamp`); softplus is
 `logaddexp(x, 0)` (torch's `softplus` turns linear past 20).
+
+In a sharded step (DTensors) the chunked GLA and the sLSTM's token loop
+run on every rank's batch rows and heads under `local_map`
+(`_per_head`): both are independent per (batch row, head), so no
+collective runs inside. There the sLSTM loop is one op pair,
+`repro_torch::slstm_scan` and its backward (back-propagation through
+time written out, `_slstm_scan_grads`), so a trace on fake tensors (the
+dry-run) dispatches one op per layer instead of a dozen per token.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (_silu, _splittable, rmsnorm,
-                                       spec_rmsnorm)
+from repro_torch.models.layers import (_gathered, _pinned, _silu,
+                                       _splittable, rmsnorm, spec_rmsnorm)
 from repro_torch.models.spec import TensorSpec
 
 
@@ -59,13 +69,60 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# sharded runs: a recurrence per (batch row, head) on local shards
+# ----------------------------------------------------------------------
+def _per_head(fn, args, dims, out_dims):
+    """fn on every rank's local shards of the DTensors `args` under
+    `local_map`, for a computation that is independent per (batch row,
+    head): dims[i] = (batch dim or None, head dim) of args[i], out_dims
+    the same for fn's outputs. The batch is laid over the data axes and
+    the heads over 'model', each where it divides (replicated
+    otherwise, as on a mesh dim of one rank), so no collective runs
+    inside fn. An argument without a batch dim (a param) is replicated
+    over the data axes and its gradient is partial there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    ref, (bd, hd) = next((t, d) for t, d in zip(args, dims)
+                         if d[0] is not None)
+    data = math.prod(mesh.size(i) for i, a in enumerate(names)
+                     if a in ("pod", "data"))
+    by_batch = ref.shape[bd] % data == 0
+    by_heads = "model" in names and \
+        ref.shape[hd] % mesh.size(names.index("model")) == 0
+
+    def layout(d, unbatched):
+        batch_dim, head_dim = d
+        on_data = Shard(batch_dim) if batch_dim is not None else unbatched
+        return tuple(
+            Replicate() if mesh.size(i) == 1 else
+            (on_data if by_batch else Replicate()) if a in ("pod", "data")
+            else Shard(head_dim) if a == "model" and by_heads
+            else Replicate() for i, a in enumerate(names))
+    in_pl = tuple(layout(d, Replicate()) for d in dims)
+    args = tuple(t.redistribute(mesh, p) for t, p in zip(args, in_pl))
+    return local_map(
+        fn, out_placements=tuple(layout(d, None) for d in out_dims),
+        in_placements=in_pl,
+        in_grad_placements=tuple(layout(d, Partial()) for d in dims),
+        device_mesh=mesh)(*args)
+
+
+# ----------------------------------------------------------------------
 # chunked GLA core
 # ----------------------------------------------------------------------
 def gla_chunked(q, k, v, g, state, chunk: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k: (B, S, H, N); v: (B, S, H, P); g: (B, S, H) log-decay ≤ 0;
     state: (B, H, N, P) incoming. Returns (y (B, S, H, P) in v's dtype,
-    state_out fp32)."""
+    state_out fp32). On DTensors it runs on every rank's batch rows and
+    heads (`_per_head`)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _per_head(lambda *a: gla_chunked(*a, chunk),
+                         (q, k, v, g, state),
+                         ((0, 2),) * 4 + ((0, 1),), ((0, 2), (0, 1)))
     B, S, H, N = q.shape
     P = v.shape[-1]
     cl = min(chunk, S)
@@ -216,7 +273,7 @@ def mamba2_apply(params, cfg: ArchConfig, x, cache=None, decode=False
             if cache is None else cache["ssd"]
         y, ssd = gla_chunked(q, k, v, g, state0, cfg.ssm_chunk)
     y = y + params["D"].to(y.dtype)[:, None] * xh
-    y = y.reshape(x.shape[0], -1, di)
+    y = _pinned(y.reshape(x.shape[0], -1, di))
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * _silu(z)
     out = y @ params["out_proj"].to(y.dtype)
     new_cache = None
@@ -308,7 +365,7 @@ def mlstm_apply(params, cfg: ArchConfig, x, cache=None, decode=False
         y_aug, S_new = gla_chunked(q, k, v_aug, g, state0, cfg.ssm_chunk)
     y, nq = y_aug[..., :P], y_aug[..., P:]
     y = y / _max1(_abs(nq)).to(y.dtype)
-    y = y.reshape(B, -1, cfg.lstm_inner)
+    y = _pinned(y.reshape(B, -1, cfg.lstm_inner))
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * _silu(zg)
     out = y @ params["down_proj"].to(y.dtype)
     new_cache = None
@@ -353,18 +410,149 @@ def _slstm_cell(r, b, wx_t, state):
     wx_t: (B, 4, H, dh) input projection at t; all fp32; state (c, n,
     h), each (B, H, dh) fp32."""
     c, n, hprev = state
+    sig, z = _slstm_gates(r, b, wx_t, hprev)
+    i, f, o = sig[:, 0], sig[:, 1], sig[:, 3]
+    c_new = f * c + i * z
+    n_new = f * n + i
+    h_new = o * c_new / _max1(n_new)
+    return c_new, n_new, h_new
+
+
+def _slstm_gates(r, b, wx_t, hprev):
+    """(σ of the four gates' pre-activations (B, 4, H, dh), tanh of the
+    cell input's) at one step (`_slstm_cell`'s shapes)."""
     B, H, dh = hprev.shape
     # Σ_d h[b,h,d]·r[g,h,d,e], one batched product over the heads
     rec = torch.bmm(hprev.transpose(0, 1), r).view(H, B, 4, dh) \
         .permute(1, 2, 0, 3)
     pre = wx_t + rec + b
     sig = torch.sigmoid(pre)                 # bounded gates (module doc)
-    i, f, o = sig[:, 0], sig[:, 1], sig[:, 3]
-    z = torch.tanh(pre[:, 2])
-    c_new = f * c + i * z
-    n_new = f * n + i
-    h_new = o * c_new / _max1(n_new)
-    return c_new, n_new, h_new
+    return sig, torch.tanh(pre[:, 2])
+
+
+def _slstm_scan(r, b, wx, state):
+    """The token loop over wx (B, S, 4, H, dh) from `state` (c, n, h),
+    or zeros: (h of every step (B, S, H, dh), the last state)."""
+    if state is None:
+        zeros = wx.new_zeros((wx.shape[0],) + tuple(wx.shape[3:]))
+        state = (zeros, zeros, zeros)
+    ys = []
+    for t in range(wx.shape[1]):             # decode: S == 1
+        state = _slstm_cell(r, b, wx[:, t], state)
+        ys.append(state[2])
+    return torch.stack(ys, 1), state
+
+
+def _slstm_scan_grads(r, b, wx, c0, n0, h0, gy, gc, gn, gh):
+    """Back-propagation through `_slstm_scan` from (c0, n0, h0): the
+    gradients of (r, b, wx, c0, n0, h0) given those of its outputs (gy
+    of every step's h, and gc, gn, gh of the last state). The forward is
+    recomputed first, keeping each step's gates and state. The
+    reference's derivatives: max(n, 1) splits a tie."""
+    B, S, _, H, dh = wx.shape
+    states, gates = [(c0, n0, h0)], []
+    for t in range(S):
+        c, n, h = states[-1]
+        sig, z = _slstm_gates(r, b, wx[:, t], h)
+        c = sig[:, 1] * c + sig[:, 0] * z
+        n = sig[:, 1] * n + sig[:, 0]
+        states.append((c, n, sig[:, 3] * c / _max1(n)))
+        gates.append((sig, z))
+    dr, dpre = torch.zeros_like(r), [None] * S
+    for t in reversed(range(S)):
+        (c_p, n_p, h_p), (c, n, h) = states[t], states[t + 1]
+        (sig, z), m = gates[t], _max1(n)
+        i, f, o = sig[:, 0], sig[:, 1], sig[:, 3]
+        g_h = gy[:, t] + gh
+        dq = g_h / m                        # h = q / m, q = o·c
+        gc = dq * o + gc
+        tie = (n > 1).to(n.dtype) + 0.5 * (n == 1).to(n.dtype)
+        gn = -(g_h * h) / m * tie + gn
+        dpre[t] = torch.stack([(gc * z + gn) * (i * (1 - i)),
+                               (gc * c_p + gn * n_p) * (f * (1 - f)),
+                               gc * i * (1 - z * z),
+                               dq * c * (o * (1 - o))], 1)
+        drec = dpre[t].permute(2, 0, 1, 3).reshape(H, B, 4 * dh)
+        gh = torch.bmm(drec, r.transpose(1, 2)).transpose(0, 1)
+        dr = dr + torch.bmm(h_p.transpose(0, 1).transpose(1, 2), drec)
+        gc, gn = gc * f, gn * f
+    dwx = torch.stack(dpre, 1)
+    return dr, dwx.sum((0, 1)), dwx, gc, gn, gh
+
+
+# The token loop as one op pair (forward, backward) for the sharded
+# runs: each rank runs it on its local shards, and a trace on fake
+# tensors (the dry-run) dispatches one op per layer, not S steps of a
+# dozen. Its FLOPs are the loop's products: one (B, dh)·(dh, 4·dh) per
+# head and step forward, three in the backward (the recomputed forward,
+# the state's and r's gradients).
+@torch.library.custom_op(
+    "repro_torch::slstm_scan", mutates_args=(),
+    schema="(Tensor r, Tensor b, Tensor wx, Tensor c, Tensor n, "
+           "Tensor h) -> (Tensor, Tensor, Tensor, Tensor)")
+def _slstm_scan_op(r, b, wx, c, n, h):
+    y, (c, n, h) = _slstm_scan(r, b, wx, (c, n, h))
+    return y, c, n, h
+
+
+@torch.library.custom_op(
+    "repro_torch::slstm_scan_backward", mutates_args=(),
+    schema="(Tensor r, Tensor b, Tensor wx, Tensor c, Tensor n, Tensor h, "
+           "Tensor gy, Tensor gc, Tensor gn, Tensor gh) -> (Tensor, Tensor, "
+           "Tensor, Tensor, Tensor, Tensor)")
+def _slstm_scan_backward_op(r, b, wx, c, n, h, gy, gc, gn, gh):
+    return _slstm_scan_grads(r, b, wx, c, n, h, gy, gc, gn, gh)
+
+
+@_slstm_scan_op.register_fake
+def _(r, b, wx, c, n, h):
+    B, S, _, H, dh = wx.shape
+    return (wx.new_empty((B, S, H, dh)), torch.empty_like(c),
+            torch.empty_like(n), torch.empty_like(h))
+
+
+@_slstm_scan_backward_op.register_fake
+def _(r, b, wx, c, n, h, gy, gc, gn, gh):
+    return tuple(torch.empty_like(t) for t in (r, b, wx, c, n, h))
+
+
+def _slstm_scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _slstm_scan_backward(ctx, gy, gc, gn, gh):
+    return _slstm_scan_backward_op(*ctx.saved_tensors, gy, gc, gn, gh)
+
+
+_slstm_scan_op.register_autograd(_slstm_scan_backward,
+                                 setup_context=_slstm_scan_setup)
+
+
+def _scan_flops(wx_shape, passes: int) -> int:
+    B, S, _, H, dh = wx_shape
+    return passes * 2 * B * S * H * dh * 4 * dh
+
+
+register_flop_formula(torch.ops.repro_torch.slstm_scan)(
+    lambda r, b, wx, *_, **__: _scan_flops(wx, 1))
+register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)(
+    lambda r, b, wx, *_, **__: _scan_flops(wx, 3))
+
+
+def _slstm_sharded(r, b, wx, state):
+    """`_slstm_scan` on DTensors (`_per_head`): r and b sliced per rank,
+    wx laid out by heads (its 4·d dim is gates-major, so a contiguous
+    shard of it holds gates, not heads). h comes back gathered over
+    'model'."""
+    def scan(r_, b_, w_, *st):
+        if not st:
+            st = (w_.new_zeros((w_.shape[0],) + tuple(w_.shape[3:])),) * 3
+        return _slstm_scan_op(r_, b_, w_, *st)
+    args = (r, b, wx) + (state or ())
+    y, *state = _per_head(scan, args,
+                          ((None, 0), (None, 1), (0, 3), (0, 1), (0, 1),
+                           (0, 1))[:len(args)], ((0, 2),) + ((0, 1),) * 3)
+    return _gathered(y, 2), tuple(state)
 
 
 def slstm_apply(params, cfg: ArchConfig, x, cache=None, decode=False
@@ -379,16 +567,13 @@ def slstm_apply(params, cfg: ArchConfig, x, cache=None, decode=False
     wx = _splittable(wx.float(), -1, 4).reshape(B, S, 4, H, dh)
     r = params["r"].float().permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)
     b = params["b"].float().reshape(4, H, dh)
-    if cache is None:
-        zeros = x.new_zeros((B, H, dh), dtype=torch.float32)
-        state = (zeros, zeros, zeros)
+    state = None if cache is None else (cache["c"], cache["n"], cache["h"])
+    from torch.distributed.tensor import DTensor
+    if isinstance(wx, DTensor):
+        y, state = _slstm_sharded(r, b, wx, state)
     else:
-        state = (cache["c"], cache["n"], cache["h"])
-    ys = []
-    for t in range(S):                       # decode: S == 1
-        state = _slstm_cell(r, b, wx[:, t], state)
-        ys.append(state[2])
-    y = torch.stack(ys, 1).reshape(B, S, d).to(x.dtype)
+        y, state = _slstm_scan(r, b, wx, state)
+    y = _pinned(y.reshape(B, S, d)).to(x.dtype)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps)
     out = y @ params["out_proj"].to(y.dtype)
     new_cache = None

@@ -18,7 +18,10 @@ In a sharded step the same code runs on DTensors. Where DTensor cannot
 carry a layout through a reshape (heads that do not split evenly over
 the mesh), `_splittable` and `_pinned` gather the dim first; the MoE
 buffers and expert weights take the reference's constraints
-(`_moe_constrain`). Each is the identity on plain tensors.
+(`_moe_constrain`). Each is the identity on plain tensors. Logits whose
+vocab is split over the mesh keep it split: their argmax and
+cross-entropy reduce row-sized values over the shards (`vocab_argmax`,
+`vocab_parallel_nll`).
 """
 from __future__ import annotations
 
@@ -144,6 +147,149 @@ def _gathered(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.redistribute(t.device_mesh, [
         Replicate() if isinstance(p, Shard) and p.dim == dim else p
         for p in t.placements])
+
+
+def vocab_split(logits: torch.Tensor) -> bool:
+    """Whether `logits` is a DTensor whose last (vocab) dim is sharded
+    over its mesh: the case `vocab_argmax` and `vocab_parallel_nll`
+    reduce over the shards. Anything else takes the plain formulas (a
+    DTensor then computes them on whole rows, as on one device)."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(logits, DTensor) and any(
+        isinstance(p, Shard) and p.dim == logits.dim() - 1
+        for p in logits.placements)
+
+
+def _vocab_layout(logits):
+    """For a DTensor of logits (..., V): (the mesh dims that shard V,
+    the placements of a row-wise result: V's dims replicated, every
+    other placement kept)."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = logits.dim() - 1
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    rows = tuple(Replicate() if i in vocab else p
+                 for i, p in enumerate(logits.placements))
+    return vocab, rows
+
+
+def _vocab_offset(mesh, vocab, local_v: int) -> int:
+    """This rank's first vocab index: its shard index over the mesh dims
+    `vocab` (major to minor) times the shard width."""
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in vocab:
+        shard = shard * mesh.size(i) + coord[i]
+    return shard * local_v
+
+
+def _rows_like(t, mesh, rows):
+    """Targets (..., ) laid out as the row-wise placements `rows` (a
+    plain tensor counts as replicated): a local slice, no collective."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, rows)
+
+
+def _first_max(x, lo: int, vocab_size: int, groups):
+    """(row max, global index of its first occurrence) of the local
+    vocab shard x (..., V/n) starting at index `lo`, reduced over the
+    vocab shards `groups`: the maximum by an all-reduce MAX, the index
+    by an all-reduce MIN among the shards that hold it, so a tie across
+    shards resolves to the lowest index, as `jnp.argmax` does."""
+    from torch.distributed import _functional_collectives as funcol
+    li = x.argmax(-1)
+    mv = x.gather(-1, li[..., None])[..., 0]
+    m = mv
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    idx = torch.where(mv == m, li + lo, torch.full_like(li, vocab_size))
+    for g in groups:
+        idx = funcol.all_reduce(idx, "min", g)
+    return m, idx
+
+
+class _VocabNLL(torch.autograd.Function):
+    """−log softmax(x)[t] per row over logits whose vocab is split
+    across ranks: x (..., V/n) this rank's shard from index `lo`, m the
+    global row max, t the global targets. The sums of exps and the
+    target's shifted logit (0 on the shards without it) are all-reduced
+    over `groups`; the backward is local, (softmax − one-hot)·g."""
+
+    @staticmethod
+    def forward(ctx, x, m, t, lo, groups):
+        from torch.distributed import _functional_collectives as funcol
+        z = x - m[..., None]
+        s = z.exp().sum(-1)
+        inside = (t >= lo) & (t < lo + x.shape[-1])
+        col = torch.where(inside, t - lo, torch.zeros_like(t))
+        zt = torch.where(inside, z.gather(-1, col[..., None])[..., 0],
+                         torch.zeros_like(s))
+        for g in groups:
+            s = funcol.all_reduce(s, "sum", g)
+            zt = funcol.all_reduce(zt, "sum", g)
+        lse = torch.log(s)
+        ctx.save_for_backward(z, lse, col, inside)
+        return -(zt - lse)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, lse, col, inside = ctx.saved_tensors
+        grad = torch.exp(z - lse[..., None]) * g[..., None]
+        hit = torch.where(inside, -g, torch.zeros_like(g))
+        grad = grad.scatter_add(-1, col[..., None], hit[..., None])
+        return grad, None, None, None, None
+
+
+def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last dim, the first maximum as `jnp.argmax`
+    takes it. A DTensor whose vocab is split over the mesh reduces each
+    rank's shard maximum and its index over the vocab's mesh dims
+    (`_first_max`); nothing vocab-sized crosses ranks. The result keeps
+    the logits' other placements."""
+    if not vocab_split(logits):
+        return logits.argmax(-1)
+    from torch.distributed.tensor.experimental import local_map
+    vocab, rows = _vocab_layout(logits)
+    mesh = logits.device_mesh
+    V = logits.shape[-1]
+    groups = [(mesh, i) for i in vocab]
+
+    def local(x):
+        lo = _vocab_offset(mesh, vocab, x.shape[-1])
+        return _first_max(x, lo, V, groups)[1]
+    return local_map(local, out_placements=(rows,),
+                     in_placements=(tuple(logits.placements),),
+                     device_mesh=mesh)(logits)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(−log softmax(logits)[targets], argmax == targets as fp32), per
+    row, on a DTensor of fp32 logits (..., V) whose vocab is split over
+    the mesh (`vocab_split`): each rank works on its
+    vocab shard under `local_map` and only row-sized values cross ranks
+    (the max, the sum of exps, the target's logit, the argmax), in the
+    forward and the backward (`_VocabNLL`). Both results take the
+    logits' row placements."""
+    from torch.distributed.tensor.experimental import local_map
+    vocab, rows = _vocab_layout(logits)
+    mesh = logits.device_mesh
+    V = logits.shape[-1]
+    groups = [(mesh, i) for i in vocab]
+    targets = _rows_like(targets.long(), mesh, rows)
+
+    def local(x, t):
+        lo = _vocab_offset(mesh, vocab, x.shape[-1])
+        with torch.no_grad():
+            m, idx = _first_max(x.detach(), lo, V, groups)
+        nll = _VocabNLL.apply(x, m, t, lo, groups)
+        return nll, (idx == t).float()
+    return local_map(local, out_placements=(rows, rows),
+                     in_placements=(tuple(logits.placements), rows),
+                     device_mesh=mesh)(logits, targets)
 
 
 def _splittable(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:

@@ -73,10 +73,11 @@ from repro_torch.models.gla import (mamba2_apply, mamba2_cache_spec,
                                     mlstm_apply, mlstm_cache_spec,
                                     slstm_apply, slstm_cache_spec,
                                     spec_mamba2, spec_mlstm, spec_slstm)
-from repro_torch.models.layers import (_gathered, attention_apply,
-                                       attn_cache_spec, mlp_apply, moe_apply,
-                                       rmsnorm, spec_attention, spec_mlp,
-                                       spec_moe, spec_rmsnorm)
+from repro_torch.models.layers import (attention_apply, attn_cache_spec,
+                                       mlp_apply, moe_apply, rmsnorm,
+                                       spec_attention, spec_mlp, spec_moe,
+                                       spec_rmsnorm, vocab_parallel_nll,
+                                       vocab_split)
 from repro_torch.models.spec import TensorSpec, stack_specs
 from repro_torch.nn.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -416,13 +417,16 @@ def _ce_chunk(cfg: ArchConfig, hc: torch.Tensor, tc: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Σ masked NLL, Σ masked correct) of one chunk: fp32 logits from
     compute-dtype operands, softcapped; argmax takes the first maximum,
-    as jax's does. In a sharded step the vocab-parallel logits are
-    gathered over the vocab first (`_gathered`), so the softmax
-    and argmax run on whole rows."""
-    logits = _gathered(_softcap(cfg, _fp32_product(hc, w)), -1)
-    logp = torch.log_softmax(logits, -1)
-    nll = -logp.gather(-1, tc[..., None])[..., 0]
-    correct = (logits.argmax(-1) == tc).float()
+    as jax's does. In a sharded step whose head splits the vocab the
+    logits stay vocab-parallel: `layers.vocab_parallel_nll` reduces
+    row-sized values over the vocab's shards, never the vocab itself."""
+    logits = _softcap(cfg, _fp32_product(hc, w))
+    if vocab_split(logits):
+        nll, correct = vocab_parallel_nll(logits, tc)
+    else:
+        logp = torch.log_softmax(logits, -1)
+        nll = -logp.gather(-1, tc[..., None])[..., 0]
+        correct = (logits.argmax(-1) == tc).float()
     return (nll * mc).sum(), (correct * mc).sum()
 
 

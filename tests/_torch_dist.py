@@ -32,6 +32,24 @@
      the unsharded ones from the params and tokens of `inputs`; rank 0
      writes <out>/sharded_serve.json and <out>/sharded_serve.npz (the
      sharded logits of every step and the last caches).
+    {"kind": "sharded_encode", "arch", "mesh", "inputs", "out"} — an
+     encoder's `make_encode_step` sharded against unsharded, from the
+     params and frame embeddings of `inputs`; rank 0 writes
+     <out>/sharded_encode.json and <out>/sharded_encode.npz (the
+     sharded frame logits).
+    {"kind": "vocab", "inputs", "softcap", "out"} — the vocab-parallel
+     loss pieces on a (1, world) mesh, the vocab over 'model': `lm.
+     _ce_chunk` (sums and the gradients of the NLL sum), `layers.
+     vocab_parallel_nll` per row and `layers.vocab_argmax`, on the
+     inputs' hc (B, c, d), w (d, V), targets and mask; rank 0 writes
+     <out>/vocab.npz (every result gathered, and the logits).
+    {"kind": "serve_cli", "argv": [...], "out"} — `launch.serve.main`
+     with `--mesh host` on the world (a (world, 1) mesh), fp32 compute;
+     rank 0 writes <out>/serve_cli.json and <out>/serve_cli.npz (its
+     tokens and logits).
+  The model inputs in `inputs` are the npz keys of `INPUT_KEYS` present
+  there: "tokens", and paligemma's "prefix_embeddings" or hubert's
+  "embeddings" and "targets" (`configs.input_specs`).
   Every process has a timeout and is killed if it outlives it.
 
 Inputs and results cross as files in a directory the caller owns.
@@ -47,6 +65,7 @@ TESTS = os.path.abspath(os.path.dirname(__file__))
 ADJ_FIELDS = ("blocks", "block_cols", "blocks_t", "block_cols_t", "row_k",
               "row_k_t")
 BATCH_FIELDS = ("features", "labels", "node_mask", "loss_mask", "num_real")
+INPUT_KEYS = ("tokens", "prefix_embeddings", "embeddings", "targets")
 
 
 def _env(**extra):
@@ -291,6 +310,21 @@ def _full_numpy(tree, prefix: str = "leaf") -> dict:
             .items()}
 
 
+def _inputs(data) -> dict:
+    """The model inputs saved in an npz (`INPUT_KEYS`), as tensors."""
+    import torch
+    return {k: torch.from_numpy(data[k]) for k in INPUT_KEYS
+            if k in data.files}
+
+
+def _fp32_arch(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(name, smoke=True),
+                               compute_dtype="float32")
+
+
 def _rel(got, want) -> float:
     import torch
     scale = float(want.abs().max()) if want.numel() else 0.0
@@ -308,7 +342,6 @@ def _sharded_lm(task, rank, world):
     import dataclasses
 
     import numpy as np
-    import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import get_arch
     from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
@@ -330,15 +363,14 @@ def _sharded_lm(task, rank, world):
     specs = spec_train_state(cfg)
     data = np.load(task["inputs"])
     state = npz_tree(data, specs)
-    tokens = torch.from_numpy(data["tokens"])
+    batch = _inputs(data)
     opt = adamw(1e-3, weight_decay=0.01, eps=task.get("eps", 1e-4))
     ref, ref_m = make_train_step(
-        cfg, dataclasses.replace(policy, fsdp=False), opt)(
-            state, {"tokens": tokens})
+        cfg, dataclasses.replace(policy, fsdp=False), opt)(state, batch)
     dstate = distribute_tree(state, shardings_for(specs, mesh, rules))
     new, m = make_train_step(cfg, policy, opt,
                              act_spec=(rules["batch"], None, None),
-                             mesh=mesh)(dstate, {"tokens": tokens})
+                             mesh=mesh)(dstate, batch)
     out = {"metrics": {k: _rel(m[k], ref_m[k]) for k in ref_m},
            "params": 0.0, "grads": 0.0, "nu": 0.0, "all_dtensor": True,
            "layouts": {}}
@@ -371,14 +403,12 @@ def _sharded_lm(task, rank, world):
 
 
 def _sharded_serve(task, rank, world):
-    """A sharded prefill (S - 1 prompt tokens, then) and decode steps
-    against the unsharded ones, fp32 compute, from the same params; rank
-    0 writes <out>/sharded_serve.json (errors per part)."""
-    import dataclasses
-
+    """A sharded prefill (S prompt tokens, after a VLM's prefix) and
+    `gen` decode steps against the unsharded ones, fp32 compute, from
+    the same params and inputs; rank 0 writes <out>/sharded_serve.json
+    (errors per part)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
                                            make_rules, shardings_for)
     from repro_torch.dist.steps import make_decode_step, make_prefill_step
@@ -388,25 +418,28 @@ def _sharded_serve(task, rank, world):
     from repro_torch.models.spec import init_tree
     from repro_torch.nn.tree import tree_leaves
 
-    cfg = dataclasses.replace(get_arch(task["arch"], smoke=True),
-                              compute_dtype="float32")
+    cfg = _fp32_arch(task["arch"])
     B, S, gen = task["batch"], task["seq"], task["gen"]
+    npfx = cfg.num_prefix_embeddings
+    ctx = npfx + S + gen
     mesh = make_debug_mesh(*task["mesh"], device_type="cpu")
-    rules = make_rules(mesh, cfg, ShapeConfig("t", "prefill", S + gen, B),
+    rules = make_rules(mesh, cfg, ShapeConfig("t", "prefill", ctx, B),
                        CellPolicy())
     act = (rules["batch"], None, None)
     p_specs = spec_params(cfg)
-    c_specs = spec_caches(cfg, B, S + gen)
+    c_specs = spec_caches(cfg, B, ctx)
     data = np.load(task["inputs"])
     params = npz_tree(data, p_specs)
-    toks = torch.from_numpy(data["tokens"])
+    inputs = _inputs(data)
+    toks = inputs.pop("tokens")
 
     def run(p, caches, prefill, decode):
-        logits, caches = prefill(p, {"tokens": toks[:, :S]}, caches)
+        logits, caches = prefill(p, dict(inputs, tokens=toks[:, :S]),
+                                 caches)
         out = [logits]
         for i in range(gen):
             _, logits, caches = decode(p, toks[:, S + i:S + i + 1], caches,
-                                       S + i)
+                                       npfx + S + i)
             out.append(logits)
         return out, caches
 
@@ -435,6 +468,108 @@ def _sharded_serve(task, rank, world):
         np.savez(os.path.join(task["out"], "sharded_serve.npz"), **arrays)
 
 
+def _sharded_encode(task, rank, world):
+    """An encoder's `make_encode_step` on DTensor params and embeddings
+    against the unsharded step, fp32 compute, from the same params; rank
+    0 writes <out>/sharded_encode.json (the error) and .npz (logits)."""
+    import numpy as np
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.dist.sharding import (CellPolicy, distribute_tree,
+                                           make_rules, placements,
+                                           shardings_for)
+    from repro_torch.dist.steps import make_encode_step
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.lm import spec_params
+
+    cfg = _fp32_arch(task["arch"])
+    data = np.load(task["inputs"])
+    p_specs = spec_params(cfg)
+    params = npz_tree(data, p_specs)
+    batch = _inputs(data)
+    B, S = batch["embeddings"].shape[:2]
+    mesh = make_debug_mesh(*task["mesh"], device_type="cpu")
+    rules = make_rules(mesh, cfg, ShapeConfig("t", "prefill", S, B),
+                       CellPolicy())
+    want = make_encode_step(cfg)(params, batch)
+    act = (rules["batch"], None, None)
+    dbatch = {k: distribute_tensor(v, mesh, placements(
+        act[:v.dim()], mesh), src_data_rank=None) for k, v in batch.items()}
+    got = make_encode_step(cfg, CellPolicy(), act_spec=act)(
+        distribute_tree(params, shardings_for(p_specs, mesh, rules)),
+        dbatch)
+    got = got.full_tensor()
+    if rank == 0:
+        os.makedirs(task["out"], exist_ok=True)
+        with open(os.path.join(task["out"], "sharded_encode.json"),
+                  "w") as f:
+            json.dump({"logits": _rel(got, want)}, f)
+        np.savez(os.path.join(task["out"], "sharded_encode.npz"),
+                 logits=got.numpy())
+
+
+def _vocab(task, rank, world):
+    """The vocab-parallel cross-entropy and argmax on a (1, world) mesh
+    (module docstring); rank 0 writes <out>/vocab.npz."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.layers import vocab_argmax, vocab_parallel_nll
+
+    cfg = dataclasses.replace(_fp32_arch("gemma3-1b"),
+                              logit_softcap=task["softcap"])
+    data = np.load(task["inputs"])
+    hc, w = (torch.from_numpy(data[k]) for k in ("hc", "w"))
+    tc, mc = torch.from_numpy(data["tc"]).long(), torch.from_numpy(
+        data["mc"])
+    mesh = make_debug_mesh(1, world, device_type="cpu")
+    hc_d = distribute_tensor(hc, mesh, [Replicate(), Replicate()])
+    w_d = distribute_tensor(w, mesh, [Replicate(), Shard(1)])
+    hc_d.requires_grad_()
+    w_d.requires_grad_()
+    with implicit_replication():
+        nll_sum, correct_sum = lm._ce_chunk(cfg, hc_d, tc, mc, w_d)
+        nll_sum.backward()
+        with torch.no_grad():
+            logits = lm._softcap(cfg, lm._fp32_product(hc_d, w_d))
+            rows, hits = vocab_parallel_nll(logits, tc)
+            first = vocab_argmax(logits)
+    out = {"nll_sum": nll_sum, "correct_sum": correct_sum,
+           "grad_hc": hc_d.grad, "grad_w": w_d.grad, "logits": logits,
+           "nll_rows": rows, "correct_rows": hits, "argmax": first}
+    out = {k: v.full_tensor().detach().numpy() for k, v in out.items()}
+    out["logits_placements"] = np.array([str(p) for p in logits.placements])
+    if rank == 0:
+        os.makedirs(task["out"], exist_ok=True)
+        np.savez(os.path.join(task["out"], "vocab.npz"), **out)
+
+
+def _serve_cli(task, rank, world):
+    """`launch.serve.main(argv + --mesh host)` in this process group
+    (its (world, 1) mesh), the arch's SMOKE config in fp32; rank 0
+    writes <out>/serve_cli.json (the returned fields) and .npz (tokens,
+    prefill and last logits)."""
+    import numpy as np
+    from repro_torch.launch import serve
+
+    serve.get_arch = lambda name, smoke=False: _fp32_arch(name)
+    res = serve.main(task["argv"] + ["--mesh", "host"])
+    if rank == 0:
+        os.makedirs(task["out"], exist_ok=True)
+        with open(os.path.join(task["out"], "serve_cli.json"), "w") as f:
+            json.dump({k: res[k] for k in ("mesh", "launches",
+                                           "decode_steps")}, f)
+        np.savez(os.path.join(task["out"], "serve_cli.npz"),
+                 tokens=res["tokens"],
+                 prefill_logits=res["prefill_logits"].numpy(),
+                 last_logits=res["last_logits"].numpy())
+
+
 def main(argv):
     import torch
     import torch.distributed as dist
@@ -453,6 +588,12 @@ def main(argv):
                     _sharded_lm(task, rank, world)
                 elif task["kind"] == "sharded_serve":
                     _sharded_serve(task, rank, world)
+                elif task["kind"] == "sharded_encode":
+                    _sharded_encode(task, rank, world)
+                elif task["kind"] == "serve_cli":
+                    _serve_cli(task, rank, world)
+                elif task["kind"] == "vocab":
+                    _vocab(task, rank, world)
                 else:
                     _steps(task, rank, world)
     finally:

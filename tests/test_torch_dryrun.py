@@ -187,6 +187,32 @@ def test_smoke_dryrun_on_a_2x2_mesh_divides_the_work():
     assert memory["argument_size_in_bytes"] > 0
 
 
+def test_vocab_parallel_loss_moves_nothing_vocab_sized():
+    """SMOKE llama3.2-1b's train step (B 4 × 64, loss chunks of 32) on a
+    fake (1, 16) mesh, the vocab over 'model': its collectives, kind by
+    kind in count and bytes, are the same at vocab 512 and 1024, so
+    neither the loss (`lm._ce_chunk`: row max, sum of exps, the target's
+    logit and the argmax all-reduced per row) nor anything else moves a
+    vocab-sized tensor. Gathering each chunk's logits over the vocab, as
+    before, all-gathered 1,376,256 B at 512 and 2,424,832 B at 1024."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.mesh import make_debug_mesh
+    dryrun.fake_world(16)
+    mesh = make_debug_mesh(1, 16, device_type="cpu")
+    shape = ShapeConfig("t", "train", 64, 4)
+    policy = CellPolicy(fsdp=False, microbatches=1, loss_chunk=32)
+    colls = []
+    for V in (512, 1024):
+        cfg = dataclasses.replace(get_arch("llama3.2-1b", smoke=True),
+                                  vocab_size=V)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            step, args = dryrun.trace_cell(cfg, shape, mesh, policy)
+        _, walker, _ = run_step(step, *args)
+        colls.append(walker.summary()["collectives"])
+    assert colls[0] == colls[1], colls
+    assert colls[0]["all-reduce"]["count"] > 0
+
+
 def test_llama_train_4k_flops_per_device_match_the_shapes():
     """llama3.2-1b train_4k on the fake 16 × 16 mesh (FSDP, 2
     microbatches of 8 × 4096 tokens a device, remat): the walker's
