@@ -44,8 +44,9 @@ this script. Phases, each of which must pass (no failure is caught):
    within 1e-4 relative, grads within 1e-4·max(1, max|g_cpu|).
 5. One epoch of the unfused path (`model.fuse_spmm=false`): 10 block-ELL
    launches per step, none fused.
-6. Serve the checkpoint that phase 3 trained: `serve_gcn.main`
-   precomputes the embedding cache and answers 1024 lookups; launch
+6. Serve the checkpoint that phase 3 trained: `serve_gcn.main
+   --verify-parity` precomputes the embedding cache, answers 1024
+   lookups and holds them against the host oracle; launch
    count (non-empty clusters x 5 propagations), served logits against
    the host oracle `full_graph_logits` (max|Δ| <= 1e-4·max(1,
    max|ref|)), the lazy halo re-embed of an invalidated cluster, and
@@ -89,12 +90,13 @@ this script. Phases, each of which must pass (no failure is caught):
    14,000-node stand-in, block-ELL, fused, node_cap 384) through
    `run_experiment.main`: `saint_node` for 2 epochs (budget 280 draws,
    50 steps an epoch) and `saint_edge` for 1 epoch (budget 140 edge
-   draws, 1,347 steps): exactly 5 fused and 5 block-ELL launches per
-   step, finite losses, the node sampler's loss falling from epoch 1
-   to 2, peak device memory. Then the step split (host build, copy,
-   step; medians of 20) and the tile occupancy of SAINT batches (mean
-   live K slots per row-block, block fill) against the cluster batches
-   of phase 3, and one-step GPU vs CPU parity on a SAINT batch
+   draws, 200 steps, cut from a pass's 1,347): exactly 5 fused and 5
+   block-ELL launches per step, finite losses, the node sampler's loss
+   falling from epoch 1 to 2, peak device memory. Then the step split
+   (host build, copy, step; medians of 20) and the tile occupancy of
+   SAINT batches (mean live K slots per row-block, block fill) against
+   the cluster batches of phase 3, and one-step GPU vs CPU parity on a
+   SAINT batch
    (fractional loss weights) under phase 4's bounds.
 11. The paper's baselines at ppi_sota's widths (5 x 2048, the same
    graph, AdamW 1e-2, batch 512, their default eq10 normalisation):
@@ -142,7 +144,7 @@ this script. Phases, each of which must pass (no failure is caught):
    buffer of CUDA tensors.
    Nothing here is NCCL across cards: the machine has one.
 14. The reference's other attention-only LMs at their published widths
-   (random weights from seed 0; B 4, 2048 prompt tokens, 32 generated):
+   (random weights from seed 0; B 4, 2048 prompt tokens, 8 generated):
    gemma3-1b, granite-3-2b, internlm2-20b, granite-moe-1b-a400m and
    paligemma-3b (256 prefix embeddings before the prompt, so T 2304)
    through `repro_torch.launch.serve.main`; dbrx-132b at 4 of its 40
@@ -174,7 +176,7 @@ this script. Phases, each of which must pass (no failure is caught):
    present; the router's probabilities against the CPU's, and a top-k
    that differs only at ties within their measured difference.
 15. The SSM and hybrid LMs at their published width and depth (bf16,
-   random weights from seed 0; B 4, 2048 prompt tokens, 32 generated)
+   random weights from seed 0; B 4, 2048 prompt tokens, 8 generated)
    through `repro_torch.launch.serve.main`: xlstm-1.3b (48 layers,
    mLSTM:sLSTM 7:1, no attention: 0 flash launches) and zamba2-7b (81
    Mamba2 layers and 13 invocations of its two alternating shared
@@ -184,18 +186,19 @@ this script. Phases, each of which must pass (no failure is caught):
    under torch.profiler. Parity as in phase 14 (kernel vs plain
    attention for zamba2-7b; prefill(S) vs prefill(S-1) + decode, which
    holds the decode recurrences and conv/sLSTM states against the
-   chunked prefill; each within twice the bf16 floor), every prefill
-   on freshly zeroed caches (a prefill starts each SSM block from its
-   cache's state). The flash kernel at zamba2-7b's shape (B 4, 32/32,
+   chunked prefill; each within twice the bf16 floor; xlstm-1.3b's on
+   one 8-layer group, mLSTM 7 : sLSTM 1), every prefill on freshly
+   zeroed caches (a prefill starts each SSM block from its cache's
+   state). The flash kernel at zamba2-7b's shape (B 4, 32/32,
    T 2048, D 112, causal): kernel, plain and SDPA ms, the bound, the
    error against the plain version.
 16. LM training. (a) `repro_torch.launch.train.main` on llama3.2-1b at
    full width and depth (B 4 x 2048, 2 microbatches, remat, loss chunk
-   512, lr 1e-3): 6 steps with `--ckpt`, then a second call with
-   `--steps 8` that restores step 6 ("restored checkpoint at step 6")
-   and takes steps 7 and 8. Every step launches the bf16 flash forward
+   512, lr 1e-3): 4 steps with `--ckpt`, then a second call with
+   `--steps 5` that restores step 4 ("restored checkpoint at step 4")
+   and takes step 5. Every step launches the bf16 flash forward
    16 layers x 2 microbatches x 2 (forward and the remat recompute) =
-   64 times, and no GCN kernel; the loss falls from step 1 to step 6;
+   64 times, and no GCN kernel; the loss falls from step 1 to step 4;
    step seconds (median after the first), peak memory, one step under
    torch.profiler. (b) One `make_train_step` of a 2-layer fp32 copy
    (full width, B 2 x 256) on the card against the CPU, same state and
@@ -208,8 +211,9 @@ this script. Phases, each of which must pass (no failure is caught):
    forward's and the backward's launches counted apart (the backward
    launches only the remat recompute). (c) One step of every other
    arch at full width, B 2 x 512, at the largest depth whose params
-   stay under TRAIN_CUT_PARAMS (dbrx-132b at 1 of 40 layers, the
-   gradient alone with no AdamW state); each cut printed: finite loss
+   stay under TRAIN_CUT_PARAMS, at least one group; AdamW up to
+   TRAIN_ADAM_PARAMS (dbrx-132b, at 1 of 40 layers, takes the gradient
+   alone with no AdamW state); each cut printed: finite loss
    and gradient norm, flash launches as the arch implies.
 
 17. The sharding layer. (a) `make_train_step` with a DeviceMesh: an NCCL
@@ -235,32 +239,79 @@ this script. Phases, each of which must pass (no failure is caught):
    whose top-2 gap in phase 8's run, replayed, is within twice that
    bound); prefill s and decode tok/s beside phase 8's.
    (b) `launch/train.py --mesh host` under `torchrun --nproc_per_node
-   1` (NCCL, a (1, 1) mesh) for 2 steps, then `launch/serve.py --mesh
-   host` the same way (B 2 x 512, 8 tokens): rc 0 and rank 0's banner.
-   (c) Once (a) and (d) are done, beside (b), on the host's CPU (no card
-   visible), `launch/dryrun.py --shape train_4k --mesh pod` for
-   llama3.2-1b and xlstm-1.3b (full depth) and `launch/dryrun_gcn.py
-   --variant all`
+   1` (NCCL, a (1, 1) mesh) for 2 steps and, at the same time,
+   `launch/serve.py --mesh host` the same way (B 2 x 512, 8 tokens):
+   rc 0 and rank 0's banner.
+   (c) On the host's CPU (no card visible), started once (a) and (d)'s
+   timed runs are done, beside (b): `launch/dryrun.py --shape train_4k
+   --mesh pod` for llama3.2-1b and xlstm-1.3b (full depth) and
+   `launch/dryrun_gcn.py --variant all`
    on a fake world of 256 ranks: per-device FLOPs, bytes, collective
    bytes, peak bytes and the roofline time at the H100 constants of
    `launch/mesh.py`; the GCN `base` variant within 2% of the reference's
    1-device step (1.5356e11 FLOP) with one gradient all-reduce, `tp`
    below it.
+18. The paper's own graphs at their published size (block-ELL, fused,
+   data.scale=1.0). Once the kernels are built, the script spawns one
+   `chip_smoke.py --scale-prep <dir> <preset>` child per preset, each on
+   one host core without the card: it generates `reddit` (58,000 nodes)
+   or `amazon2m` (2,449,029 nodes), saves the graph's arrays, and
+   partitions it (1,500 or 15,000 parts) into the partition cache of
+   this run's dataset directory, beside phases 2-17. Phase 18 waits for
+   each (SCALE_PREP_TIMEOUT_S; a failure or timeout fails the run),
+   prints each graph's nodes and edges and the partition's seconds,
+   within-cluster share and imbalance, and fails unless every
+   build_partition of the phase reads that cache (`cached: True`). Its
+   builds take the children's graphs (the same seeded graph, not
+   generated again): passed to `build_experiment` and the serving
+   engine, and, around the two CLIs, through `_prepared_graph`, which
+   fails unless every graph the CLI builds was the child's.
+   reddit: 2 epochs through `run_experiment.main` (75 steps an epoch,
+   4 fused + 4 block-ELL launches a step, loss finite and falling, a
+   checkpoint), the step split and one step card vs CPU under phase 4's
+   bounds, then `serve_gcn.main --verify-parity` on the checkpoint
+   (1,500 clusters x 4 propagations = 6,000 launches; precompute s,
+   p50/p99, QPS) and the served logits against the host oracle within
+   phase 6's bound, and both kernels at its widths. amazon2m: first
+   VR-GCN (r 2, batch 512, AdamW 1e-2) one epoch on its graph while the
+   child still partitions (epoch s, peak device memory, host history
+   exactly 2 x N x 400 x 4 bytes); then 2 epochs through
+   `run_experiment.main` (1,500 steps an epoch, 3 + 3 launches a step,
+   the loss finite and falling, epoch s, peak device memory, the test
+   accuracy of the host evaluation), the batcher's node_cap, the step
+   split, one step card vs CPU, the kernels at its widths, the Table 8
+   comparison with the paper's figures beside, and serving's tiles for
+   one median-size cluster against all column blocks at width 400 (K,
+   tile bytes, host build, copy and kernel ms, held against the plain
+   product) with that arithmetic for the whole graph. The kernels at
+   the recipes' widths run on one real batch's nrb x K (fused 100 ->
+   400, 400 -> 400, 400 -> 47, 128 -> 128, 128 -> 41; the SpMM backward
+   at F 400, 47, 128, 41), fp32, against their plain versions under
+   phase 2's tolerance and bitwise repeat, with the library yardstick.
 Phase 7 also times the fp32 kernel at the llama3.2-1b prefill shape
 (phase 8's fp32 prefill launches it) against its bound, its plain
-version and fp32 SDPA.
+version and fp32 SDPA. Each phase's wall seconds are printed
+(`[phase] ...`), and the whole run's.
 
 Every count is set to 0 just before its path runs and read just after.
 The last three lines of stdout are the nvidia-smi line, a JSON line of
 per-kernel numbers (`{"kernels": [...]}`), and `{"ok": true, "device":
 {...}}`. Full per-case results also go to chiprun_out/chip_smoke.json.
 Datasets, partitions, checkpoints and the serving cache live in a
-temporary directory that is removed at the end.
+temporary directory that is removed at the end, the prep child's
+output and log with them.
+
+    python3 chip_smoke.py --host-oracle amazon2m [scale]
+
+is not part of that run: it times the host oracle's full-graph
+evaluation with Â's products split over the host's cores and with one
+scipy call each, and checks that both give the same logits bit for bit.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -271,6 +322,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -292,7 +344,10 @@ TRAIN_SETS = ["batch.sparse_adj=true", "model.fuse_spmm=true"]
 # the GraphSAINT runs of phase 10: the same model and kernels, i.i.d.
 # subgraph batches (default budget: 280 node draws, 140 edge draws)
 SAINT_SETS = TRAIN_SETS + ["batch.node_cap=384"]
-SAINT_RUNS = (("saint_node", 2), ("saint_edge", 1))
+# (sampler, epochs, extra sets): saint_edge's epoch is cut from a pass's
+# 1,347 steps (E / budget) to 200, to keep the script inside its time limit
+SAINT_RUNS = (("saint_node", 2, []),
+              ("saint_edge", 1, ["batch.batches_per_epoch=200"]))
 BASELINE_BATCH = 512
 # phase 12: ppi_sota's recipe on the real-format PPI graph
 REAL_SETS = TRAIN_SETS + ["data.name=ppi_real"]
@@ -308,42 +363,51 @@ LM_TOL = 1e-2       # the reference's bound (tests/test_models.py)
 LM_FP32_TOL = 1e-4  # fp32 logits: summation order over 16 layers
 # phase 14: the reference's other attention-only LMs at their published
 # widths, B 4 x 2048 prompt tokens (after paligemma's 256-patch prefix),
-# 32 generated; dbrx-132b at 4 of its 40 layers (264 GB of bf16 weights
+# 8 generated (cut from 32 for the script's time limit: the decode rate is
+# read over 7 steps); dbrx-132b at 4 of its 40 layers (264 GB of bf16 weights
 # do not fit one card); internlm2-20b and dbrx-132b hold parity on a
-# 2-layer copy (their fp32 copy does not fit beside the bf16 one)
+# 2-layer copy (their fp32 copy does not fit beside the bf16 one), and
+# phase 15's xlstm-1.3b on one 8-layer group of its 48 (to keep the
+# script inside its time limit)
 ARCH_NAMES_14 = ("gemma3-1b", "granite-3-2b", "internlm2-20b",
                  "granite-moe-1b-a400m", "dbrx-132b", "hubert-xlarge",
                  "paligemma-3b")
 ARCH_CLI = ("gemma3-1b", "granite-3-2b", "internlm2-20b",
             "granite-moe-1b-a400m", "paligemma-3b")
-ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 2048, 32
+ARCH_BATCH, ARCH_PROMPT, ARCH_GEN = 4, 2048, 8
 ARCH_DBRX_LAYERS = 4
-ARCH_PARITY_LAYERS = {"internlm2-20b": 2, "dbrx-132b": 2}
+ARCH_PARITY_LAYERS = {"internlm2-20b": 2, "dbrx-132b": 2,
+                      "xlstm-1.3b": 8}
 # the arch whose first MoE layer is held on the card against the CPU at
 # the served shape (dbrx-132b's, 16 x 640 slots x 6144 x 10752 per row,
 # is ~1.6e13 FLOP: minutes on the host's cores)
 ARCH_MOE_CPU = "granite-moe-1b-a400m"
 # phase 15: the SSM and hybrid LMs, served through the CLI at full depth
 ARCH_SSM = ("xlstm-1.3b", "zamba2-7b")
-# phase 16: LM training; (a) llama3.2-1b through the CLI, 6 steps and a
-# resumed call to step 8
+# phase 16: LM training; (a) llama3.2-1b through the CLI, 4 steps and a
+# resumed call to step 5 (cut from 6 and 8 for the script's time limit;
+# the checkpoint's save and restore, ≈2 minutes, stay)
 TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "2048",
               "--microbatches", "2", "--lr", "1e-3", "--seed", "0",
               "--log-every", "1"]
-TRAIN_STEPS = (6, 8)
+TRAIN_STEPS = (4, 5)
 # (b) card vs CPU on a 2-layer fp32 copy at B 2 x 256; the bf16 kernel
 # gradient vs the plain one on the card at (a)'s microbatch, B 2 x 2048
 TRAIN_PARITY = dict(layers=2, batch=2, seq=256)
 TRAIN_GRAD_BF16 = dict(batch=2, seq=2048, loss_chunk=512)
 # (c) every other arch, B 2 x 512, cut to the depth whose params stay
-# under TRAIN_CUT_PARAMS: the functional AdamW holds the old and the new
-# moments and params, the grads and the updates at once, ≈36 bytes a
+# under TRAIN_CUT_PARAMS (0.9 B, to keep the script inside its time
+# limit), at least one group. The functional AdamW holds the old and the
+# new moments and params, the grads and the updates at once, ≈36 bytes a
 # param at the update (llama3.2-1b's step peaks at 40.9 GiB), so 1.8 B
-# params (≈60 GiB) is what a step of the card holds. An arch whose one
-# group is larger (dbrx-132b: ≈4.5 B params with its embeddings) takes
-# the gradient alone, without AdamW state (≈8 bytes a param)
+# params (≈60 GiB, TRAIN_ADAM_PARAMS) is what an AdamW step of the card
+# holds: internlm2-20b and zamba2-7b, whose one group is above the cut,
+# still take it. An arch whose one group is larger still (dbrx-132b:
+# ≈4.5 B params with its embeddings) takes the gradient alone, without
+# AdamW state (≈8 bytes a param)
 TRAIN_OTHER = dict(batch=2, seq=512)
-TRAIN_CUT_PARAMS = 1.8e9
+TRAIN_CUT_PARAMS = 0.9e9
+TRAIN_ADAM_PARAMS = 1.8e9
 # phase 17: the sharding layer. (a) llama3.2-1b at full width, its depth
 # cut to 2 layers for the parity copies (fp32 and bf16 states and their
 # updates, sharded and not, side by side) and to 4 for the timed bf16
@@ -363,6 +427,23 @@ DRYRUN_TIMEOUT_S = 600
 # with phase 8's run), and a shorter one under torchrun
 SHARD_SERVE_CLI = ["--arch", "llama3.2-1b", "--mesh", "host", "--batch",
                    "2", "--prompt-len", "512", "--gen", "8", "--seed", "0"]
+# phase 18: the paper's own graphs at their published size (reddit: 58,000
+# nodes, 1,500 parts, q 20, 4 x 128; amazon2m: 2,449,029 nodes, 15,000
+# parts, q 10, 3 x 400), block-ELL and fused. A child process per preset
+# (`--scale-prep`) generates and partitions it into the partition cache
+# while phases 2-17 run; every phase-18 build reads that cache
+SCALE_SETS = TRAIN_SETS + ["data.scale=1.0"]
+SCALE_PRESETS = ("reddit", "amazon2m")
+SCALE_PREP_TIMEOUT_S = 900
+# the kernels at the recipes' widths, on one real batch's nrb x K
+SCALE_FUSED = {"amazon2m": ((100, 400), (400, 400), (400, 47)),
+               "reddit": ((128, 128), (128, 41))}
+SCALE_BWD = {"amazon2m": (400, 47), "reddit": (128, 41)}
+# one Amazon2M serving cluster's tiles at layer 1's width
+SCALE_SERVE_WIDTH = 400
+# the paper's Table 8 on Amazon2M (3 x 400): whole trainings on its own
+# hardware, seconds and GB — context beside this run's epochs, not a target
+PAPER_TABLE8 = {"cluster_gcn": (1523, 2.2), "vrgcn": (1961, 11.2)}
 # what phase 8's one-device serving returned (tensors; not in the JSON)
 _PHASE8: dict = {}
 # the reference's own 1-device Cluster-GCN step at the PPI-SOTA shape:
@@ -491,12 +572,64 @@ def _check_case(name, row, err, scale, dname):
                              f"with itself on a repeated call: {row}")
 
 
+def _spmm_case(results: dict, seed: int, nrb, K, B, ncb, F, dtype, mode,
+               library: bool) -> dict:
+    """One block-ELL SpMM case against its plain version (and itself on a
+    repeated call); `library` also times the library yardstick and the
+    device times. Appends its row to results["kernel_cases"]."""
+    import torch
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels.ref import spmm_block_ell_ref
+
+    blocks, cols, x, row_k = _case_inputs(nrb, K, B, ncb, F, dtype, mode,
+                                          seed=seed)
+    y = block_spmm.spmm_block_ell(blocks, cols, x, row_k=row_k)
+    again = block_spmm.spmm_block_ell(blocks, cols, x, row_k=row_k)
+    torch.cuda.synchronize()
+    ref = spmm_block_ell_ref(blocks, cols, x)
+    err = float((y.float() - ref.float()).abs().max()) if y.numel() \
+        else 0.0
+    scale = max(1.0, float(ref.float().abs().max())) if y.numel() \
+        else 1.0
+    dname = str(dtype).replace("torch.", "")
+    reps = 10 if library else 5
+    ms = (_time_ms(lambda: block_spmm._launch(blocks, cols, x, row_k),
+                   reps) if K else None)  # K = 0 launches nothing
+    plain_ms = _time_ms(lambda: spmm_block_ell_ref(blocks, cols, x), reps)
+    row = dict(nrb=nrb, K=K, B=B, ncb=ncb, F=F, dtype=dname,
+               row_k=mode, ms=ms, plain_ms=plain_ms,
+               bitwise_repeat=bool(torch.equal(y, again)))
+    if K:
+        row["plan"] = dataclasses.asdict(block_spmm.spmm_plan(
+            nrb, K, B, F, dtype, (blocks.data_ptr(), x.data_ptr()),
+            block_spmm._sms(x.device)))
+    flops = 2.0 * _live_slots(blocks, row_k) * B * B * F
+    row["bound_ms"], row["bound_by"] = _bound(
+        flops, (blocks, cols, x, y, row_k), dtype)
+    if library:
+        gathered = x.reshape(-1, B, F)[cols.long()].reshape(nrb, K * B, F)
+        a = blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B)
+        row["library_ms"] = _time_ms(lambda: torch.bmm(a, gathered), reps)
+        row["device_ms"] = _device_ms(
+            lambda: block_spmm._launch(blocks, cols, x, row_k))
+        row["library_device_ms"] = _device_ms(lambda: torch.bmm(a, gathered))
+        del gathered, a
+    _check_case("block_ell_spmm", row, err, scale, dname)
+    results["kernel_cases"].append(row)
+    print(f"[kernels] spmm B={B:>3} F={F:>4} nrb={nrb} K={K:>3} "
+          f"{dname:>8} row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
+          f"(tol {TOL[dname] * scale:.3e})  "
+          f"kernel {'-' if ms is None else f'{ms:.4f}'} ms  "
+          f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
+          + (f"  bmm {row['library_ms']:.4f} ms"
+             if "library_ms" in row else ""))
+    return row
+
+
 def phase_kernels(results: dict) -> dict:
     """The block-ELL SpMM against its plain version; returns the rows of
     the serving cluster shape (fp32) and the training backward shape."""
     import torch
-    from repro_torch.kernels import block_spmm
-    from repro_torch.kernels.ref import spmm_block_ell_ref
 
     cases = []
     for B in (8, 16, 128):
@@ -516,83 +649,38 @@ def phase_kernels(results: dict) -> dict:
                       torch.float32, "full"))
     main = {}
     for n, (nrb, K, B, ncb, F, dtype, mode) in enumerate(cases):
-        blocks, cols, x, row_k = _case_inputs(nrb, K, B, ncb, F, dtype,
-                                              mode, seed=n)
-        y = block_spmm.spmm_block_ell(blocks, cols, x, row_k=row_k)
-        again = block_spmm.spmm_block_ell(blocks, cols, x, row_k=row_k)
-        torch.cuda.synchronize()
-        ref = spmm_block_ell_ref(blocks, cols, x)
-        err = float((y.float() - ref.float()).abs().max()) if y.numel() \
-            else 0.0
-        scale = max(1.0, float(ref.float().abs().max())) if y.numel() \
-            else 1.0
-        dname = str(dtype).replace("torch.", "")
         is_ppi = (nrb, K, B, ncb, F) == tuple(p.values())
         is_bwd = mode == "full"
-        reps = 10 if (is_ppi or is_bwd) else 5
-        ms = (_time_ms(lambda: block_spmm._launch(blocks, cols, x, row_k),
-                       reps) if K else None)  # K = 0 launches nothing
-        plain_ms = _time_ms(lambda: spmm_block_ell_ref(blocks, cols, x),
-                            reps)
-        row = dict(nrb=nrb, K=K, B=B, ncb=ncb, F=F, dtype=dname,
-                   row_k=mode, ms=ms, plain_ms=plain_ms,
-                   bitwise_repeat=bool(torch.equal(y, again)))
-        if K:
-            row["plan"] = dataclasses.asdict(block_spmm.spmm_plan(
-                nrb, K, B, F, dtype, (blocks.data_ptr(), x.data_ptr()),
-                block_spmm._sms(x.device)))
-        flops = 2.0 * _live_slots(blocks, row_k) * B * B * F
-        row["bound_ms"], row["bound_by"] = _bound(
-            flops, (blocks, cols, x, y, row_k), dtype)
-        if is_ppi or is_bwd:
-            gathered = x.reshape(-1, B, F)[cols.long()].reshape(
-                nrb, K * B, F)
-            a = blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B)
-            row["library_ms"] = _time_ms(lambda: torch.bmm(a, gathered),
-                                         reps)
-            row["device_ms"] = _device_ms(
-                lambda: block_spmm._launch(blocks, cols, x, row_k))
-            row["library_device_ms"] = _device_ms(
-                lambda: torch.bmm(a, gathered))
-            del gathered, a
-            if is_ppi and dtype == torch.float32 and mode is None:
-                main["serve"] = row      # the shape and call serving makes
-            if is_bwd and F == 2048:
-                main["train_bwd"] = row  # the hidden layers' backward
-        _check_case("block_ell_spmm", row, err, scale, dname)
-        results["kernel_cases"].append(row)
-        print(f"[kernels] spmm B={B:>3} F={F:>4} nrb={nrb} K={K:>3} "
-              f"{dname:>8} row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
-              f"(tol {TOL[dname] * scale:.3e})  "
-              f"kernel {'-' if ms is None else f'{ms:.4f}'} ms  "
-              f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
-              + (f"  bmm {row['library_ms']:.4f} ms"
-                 if "library_ms" in row else ""))
-        del blocks, cols, x, y, again, ref
+        row = _spmm_case(results, n, nrb, K, B, ncb, F, dtype, mode,
+                         library=is_ppi or is_bwd)
+        if is_ppi and dtype == torch.float32 and mode is None:
+            main["serve"] = row          # the shape and call serving makes
+        if is_bwd and F == 2048:
+            main["train_bwd"] = row      # the hidden layers' backward
     for tag, row in (("serving", main["serve"]),
                      ("training backward", main["train_bwd"])):
         _print_vs_library(f"spmm at the {tag} shape", row, "bmm")
     return main
 
 
-def _device_ms(fn, reps: int = 10) -> float:
+def _device_ms(fn, reps: int = 10):
     """Device time of one call of fn: the sum of its kernels' times under
-    torch.profiler, per call. Unlike `_time_ms` it leaves out the host's
-    launch overhead, which sets the pace of a call that is shorter on the
-    card than on the host."""
+    torch.profiler, per call, or None when the trace holds none. Unlike
+    `_time_ms` it leaves out the host's launch overhead, which sets the
+    pace of a call that is shorter on the card than on the host."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU activity too, as in `_profile`: traces of CUDA activity alone
+    # have come back without the kernels of a few of these short calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    total = sum(_device_events_ms(prof).values())
+    return total / reps if total else None
 
 
 def _print_vs_library(what: str, row: dict, library: str) -> None:
@@ -601,14 +689,16 @@ def _print_vs_library(what: str, row: dict, library: str) -> None:
     device time."""
     row["vs_library"] = row["ms"] / row["library_ms"]
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    row["device_vs_library"] = row["device_ms"] / row["library_device_ms"]
+    dev, lib = row["device_ms"], row["library_device_ms"]
+    row["device_vs_library"] = dev / lib if dev and lib else None
+    device = (f"device time {dev:.4f} ms = {row['device_vs_library']:.2f} x "
+              f"{library}'s ({lib:.4f} ms)" if row["device_vs_library"]
+              else "device time not measured (no kernel in the trace)")
     plan = row.get("plan") or row.get("plans")
     print(f"[kernels] {what}: kernel {row['ms']:.4f} ms = "
           f"{row['vs_library']:.2f} x {library} ({row['library_ms']:.4f} ms); "
           f"{100 * row['bound_share']:.1f}% of the {row['bound_ms']:.4f} ms "
-          f"bound; device time {row['device_ms']:.4f} ms = "
-          f"{row['device_vs_library']:.2f} x {library}'s "
-          f"({row['library_device_ms']:.4f} ms); plan {plan}")
+          f"bound; {device}; plan {plan}")
 
 
 def _fused_inputs(nrb, K, B, ncb, D, F, dtype, mode, seed):
@@ -622,12 +712,76 @@ def _fused_inputs(nrb, K, B, ncb, D, F, dtype, mode, seed):
     return blocks, cols, x, w, b, row_k
 
 
+def _fused_case(results: dict, seed: int, nrb, K, B, ncb, D, F, dtype,
+                mode, library: bool) -> dict:
+    """One fused Â·(XW + b) case against its plain version (and itself on
+    a repeated call); `library` also times the library yardstick and the
+    device times. Appends its row to results["fused_cases"]."""
+    import torch
+    from repro_torch.kernels import block_spmm
+    from repro_torch.kernels.ref import spmm_fused_ref
+
+    blocks, cols, x, w, b, row_k = _fused_inputs(nrb, K, B, ncb, D, F,
+                                                 dtype, mode, seed=seed)
+    y = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b, row_k=row_k)
+    again = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b,
+                                            row_k=row_k)
+    torch.cuda.synchronize()
+    ref = spmm_fused_ref(blocks, cols, x, w, b)
+    err = float((y.float() - ref.float()).abs().max()) if y.numel() \
+        else 0.0
+    scale = max(1.0, float(ref.float().abs().max())) if y.numel() \
+        else 1.0
+    dname = str(dtype).replace("torch.", "")
+    reps = 10 if mode == "full" else 3
+    ms = (_time_ms(lambda: block_spmm._launch_fused(blocks, cols, x, w, b,
+                                                    row_k), reps)
+          if K else None)
+    plain_ms = _time_ms(lambda: spmm_fused_ref(blocks, cols, x, w, b), reps)
+    live = _live_slots(blocks, row_k)
+    # the function: XW over every row of x once, then the live tiles;
+    # the kernel computes each row of XW once too, so it does the same
+    fn_flops = 2.0 * x.shape[0] * D * F + 2.0 * live * B * B * F
+    row = dict(nrb=nrb, K=K, B=B, ncb=ncb, D=D, F=F, dtype=dname,
+               row_k=mode, ms=ms, plain_ms=plain_ms,
+               function_flops=fn_flops, kernel_flops=fn_flops,
+               bitwise_repeat=bool(torch.equal(y, again)))
+    if K:
+        sms = block_spmm._sms(x.device)
+        row["plans"] = dict(
+            xw=dataclasses.asdict(block_spmm.xw_plan(
+                x.shape[0], D, F, dtype, (x.data_ptr(), w.data_ptr()), sms)),
+            spmm=dataclasses.asdict(block_spmm.spmm_plan(
+                nrb, K, B, F, dtype, (blocks.data_ptr(), 0), sms)))
+    row["bound_ms"], row["bound_by"] = _bound(
+        fn_flops, (blocks, cols, x, w, b, y, row_k), dtype)
+    if library:
+        def lib():
+            xw = torch.addmm(b.to(x.dtype), x, w)
+            gathered = xw.reshape(-1, B, F)[cols.long()].reshape(
+                nrb, K * B, F)
+            return torch.bmm(
+                blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B), gathered)
+        row["library_ms"] = _time_ms(lib, reps)
+        row["device_ms"] = _device_ms(lambda: block_spmm._launch_fused(
+            blocks, cols, x, w, b, row_k))
+        row["library_device_ms"] = _device_ms(lib)
+    _check_case("block_ell_spmm_fused", row, err, scale, dname)
+    results["fused_cases"].append(row)
+    print(f"[fused] B={B:>3} D={D:>4} F={F:>4} nrb={nrb} K={K} "
+          f"{dname:>8} row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
+          f"(tol {TOL[dname] * scale:.3e})  "
+          f"kernel {'-' if ms is None else f'{ms:.4f}'} ms  "
+          f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
+          + (f"  addmm+bmm {row['library_ms']:.4f} ms"
+             if "library_ms" in row else ""))
+    return row
+
+
 def phase_fused(results: dict) -> dict:
     """The fused Â·(XW + b) kernel against its plain version; returns the
     row of the ppi_sota hidden layer (2048 → 2048, fp32)."""
     import torch
-    from repro_torch.kernels import block_spmm
-    from repro_torch.kernels.ref import spmm_fused_ref
 
     cases = []
     for B in (8, 16, 128):
@@ -645,94 +799,49 @@ def phase_fused(results: dict) -> dict:
                           "full"))
     train_rows = {}
     for n, (nrb, K, B, ncb, D, F, dtype, mode) in enumerate(cases):
-        blocks, cols, x, w, b, row_k = _fused_inputs(nrb, K, B, ncb, D, F,
-                                                     dtype, mode, seed=n)
-        y = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b,
-                                            row_k=row_k)
-        again = block_spmm.spmm_fused_block_ell(blocks, cols, x, w, b,
-                                                row_k=row_k)
-        torch.cuda.synchronize()
-        ref = spmm_fused_ref(blocks, cols, x, w, b)
-        err = float((y.float() - ref.float()).abs().max()) if y.numel() \
-            else 0.0
-        scale = max(1.0, float(ref.float().abs().max())) if y.numel() \
-            else 1.0
-        dname = str(dtype).replace("torch.", "")
-        is_train = mode == "full"
-        reps = 10 if is_train else 3
-        ms = (_time_ms(lambda: block_spmm._launch_fused(blocks, cols, x, w,
-                                                        b, row_k), reps)
-              if K else None)
-        plain_ms = _time_ms(lambda: spmm_fused_ref(blocks, cols, x, w, b),
-                            reps)
-        live = _live_slots(blocks, row_k)
-        # the function: XW over every row of x once, then the live tiles;
-        # the kernel computes each row of XW once too, so it does the same
-        fn_flops = 2.0 * x.shape[0] * D * F + 2.0 * live * B * B * F
-        row = dict(nrb=nrb, K=K, B=B, ncb=ncb, D=D, F=F, dtype=dname,
-                   row_k=mode, ms=ms, plain_ms=plain_ms,
-                   function_flops=fn_flops, kernel_flops=fn_flops,
-                   bitwise_repeat=bool(torch.equal(y, again)))
-        if K:
-            sms = block_spmm._sms(x.device)
-            row["plans"] = dict(
-                xw=dataclasses.asdict(block_spmm.xw_plan(
-                    x.shape[0], D, F, dtype, (x.data_ptr(), w.data_ptr()),
-                    sms)),
-                spmm=dataclasses.asdict(block_spmm.spmm_plan(
-                    nrb, K, B, F, dtype, (blocks.data_ptr(), 0), sms)))
-        row["bound_ms"], row["bound_by"] = _bound(
-            fn_flops, (blocks, cols, x, w, b, y, row_k), dtype)
-        if is_train and dtype == torch.float32:
-            def library():
-                xw = torch.addmm(b.to(x.dtype), x, w)
-                gathered = xw.reshape(-1, B, F)[cols.long()].reshape(
-                    nrb, K * B, F)
-                return torch.bmm(
-                    blocks.permute(0, 2, 1, 3).reshape(nrb, B, K * B),
-                    gathered)
-            row["library_ms"] = _time_ms(library, reps)
-            row["device_ms"] = _device_ms(lambda: block_spmm._launch_fused(
-                blocks, cols, x, w, b, row_k))
-            row["library_device_ms"] = _device_ms(library)
+        is_train = mode == "full" and dtype == torch.float32
+        row = _fused_case(results, n, nrb, K, B, ncb, D, F, dtype, mode,
+                          library=is_train)
+        if is_train:
             train_rows[(D, F)] = row
-        _check_case("block_ell_spmm_fused", row, err, scale, dname)
-        results["fused_cases"].append(row)
-        print(f"[fused] B={B:>3} D={D:>4} F={F:>4} nrb={nrb} K={K} "
-              f"{dname:>8} row_k={mode or 'None':>5}  max|Δ|={err:.3e} "
-              f"(tol {TOL[dname] * scale:.3e})  "
-              f"kernel {'-' if ms is None else f'{ms:.4f}'} ms  "
-              f"plain {plain_ms:.4f} ms  bound {row['bound_ms']:.4f} ms"
-              + (f"  addmm+bmm {row['library_ms']:.4f} ms"
-                 if "library_ms" in row else ""))
-        del blocks, cols, x, w, b, y, again, ref
     for (D, F), row in train_rows.items():
         _print_vs_library(f"fused {D} -> {F}", row, "addmm+bmm")
     return train_rows[FUSED_MAIN]
 
 
-def _train_argv(work: pathlib.Path, name: str, sets) -> list:
-    argv = ["--preset", "ppi_sota", "--results-dir", str(work / name)]
+def _train_argv(work: pathlib.Path, name: str, sets,
+                preset: str = "ppi_sota") -> list:
+    argv = ["--preset", preset, "--results-dir", str(work / name)]
     for s in sets:
         argv += ["--set", s]
     return argv
 
 
-def phase_train(results: dict, work: pathlib.Path) -> dict:
-    """Train ppi_sota 2 epochs through the CLI — the main path."""
+def phase_train(results: dict, work: pathlib.Path, preset: str = "ppi_sota",
+                sets=TRAIN_SETS, key: str = "train", tag: str = "train",
+                graph=None) -> dict:
+    """Train `preset` 2 epochs through the CLI — the main path: one fused
+    and one block-ELL launch per layer and step, a finite loss that falls
+    from epoch 1 to 2. A `graph` given is the CLI's (`_prepared_graph`)."""
     from repro_torch.kernels import block_spmm
     from repro_torch.launch import run_experiment
+    from repro_torch.launch.run_experiment import load_spec
 
-    ck = work / "train_ck"
-    argv = _train_argv(work, "train", TRAIN_SETS + [
-        "run.epochs=2", "run.eval_every=2", f"run.checkpoint_dir={ck}"])
-    print(f"[train] run_experiment {' '.join(argv)}")
+    spec = load_spec(_spec_args(sets, preset))
+    per_epoch = -(-spec.partition.num_parts // spec.batch.clusters_per_batch)
+    layers = spec.model.num_layers
+    ck = work / f"{key}_ck"
+    argv = _train_argv(work, key, sets + [
+        "run.epochs=2", "run.eval_every=2", f"run.checkpoint_dir={ck}"],
+        preset)
+    print(f"[{tag}] run_experiment {' '.join(argv)}")
     mem0 = _reset_peak_memory()
     t0 = time.perf_counter()
     # --- the main path: every launch count starts at 0 here -------------
     block_spmm.LAUNCHES = 0
     block_spmm.LAUNCHES_FUSED = 0
-    rc = run_experiment.main(argv)
+    with _prepared_graph(spec, graph):
+        rc = run_experiment.main(argv)
     launches = {"block_ell_spmm": block_spmm.LAUNCHES,
                 "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
     # ---------------------------------------------------------------------
@@ -740,43 +849,47 @@ def phase_train(results: dict, work: pathlib.Path) -> dict:
     memory = _peak_memory(mem0)
     if rc != 0:
         raise AssertionError(f"run_experiment returned {rc}")
-    metrics = json.loads((work / "train" / "ppi_sota" / "metrics.json")
+    metrics = json.loads((work / key / spec.name / "metrics.json")
                          .read_text())
     steps = metrics["global_step"]
     losses = [h["loss"] for h in metrics["history"]]
-    print(f"[train] {steps} steps in {wall:.2f} s (incl. data, partition, "
+    print(f"[{tag}] {steps} steps in {wall:.2f} s (incl. data, partition, "
           f"eval); epoch losses {losses}; final "
           f"{metrics['final']['split']} micro-F1 "
           f"{metrics['final']['score']:.4f}")
-    print(f"[train] launches: fused {launches['block_ell_spmm_fused']}, "
-          f"block_ell_spmm {launches['block_ell_spmm']} (expected 5 x "
-          f"{steps} each)")
-    results["train"] = dict(steps=steps, wall_s=wall, launches=launches,
-                            history=metrics["history"],
-                            final=metrics["final"],
-                            seconds=metrics["seconds"], **memory)
-    print(f"[train] peak device memory {memory['peak_gib']:.3f} GiB "
+    print(f"[{tag}] launches: fused {launches['block_ell_spmm_fused']}, "
+          f"block_ell_spmm {launches['block_ell_spmm']} (expected {layers} "
+          f"x {steps} each)")
+    results[key] = dict(steps=steps, wall_s=wall, launches=launches,
+                        history=metrics["history"],
+                        epoch_s=_epoch_seconds(metrics["history"]),
+                        final=metrics["final"],
+                        seconds=metrics["seconds"], **memory)
+    print(f"[{tag}] peak device memory {memory['peak_gib']:.3f} GiB "
           f"({memory['above_start_gib']:.3f} GiB above the start)")
-    if steps != 100 or launches["block_ell_spmm_fused"] != 5 * steps \
-            or launches["block_ell_spmm"] != 5 * steps:
-        raise AssertionError(f"expected 100 steps with 5 launches of each "
-                             f"kernel per step: {steps} steps, {launches}")
+    if steps != 2 * per_epoch \
+            or launches["block_ell_spmm_fused"] != layers * steps \
+            or launches["block_ell_spmm"] != layers * steps:
+        raise AssertionError(f"expected {2 * per_epoch} steps with "
+                             f"{layers} launches of each kernel per step: "
+                             f"{steps} steps, {launches}")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[1] < losses[0]:
         raise AssertionError(f"loss not finite or not falling: {losses}")
     return dict(launches=launches, checkpoint=ck)
 
 
-def _spec_args(sets):
-    """ppi_sota with `--set` overrides, as the CLIs parse them."""
+def _spec_args(sets, preset: str = "ppi_sota"):
+    """`preset` with `--set` overrides, as the CLIs parse them."""
     import argparse
-    return argparse.Namespace(preset="ppi_sota", spec=None, set=list(sets))
+    return argparse.Namespace(preset=preset, spec=None, set=list(sets))
 
 
-def _step_parts(spec_sets):
+def _step_parts(spec_sets, preset: str = "ppi_sota", graph=None):
     from repro_torch.core.experiment import build_experiment
     from repro_torch.launch.run_experiment import load_spec
-    return build_experiment(load_spec(_spec_args(spec_sets)), device="cuda")
+    return build_experiment(load_spec(_spec_args(spec_sets, preset)),
+                            graph=graph, device="cuda")
 
 
 def _occupancy(batches) -> dict:
@@ -799,17 +912,17 @@ def _occupancy(batches) -> dict:
                 live_tile_fill=float(np.mean(fill)))
 
 
-def phase_step_profile(results: dict, sets=TRAIN_SETS, key="train_step",
+def phase_step_profile(results: dict, exp, key="train_step",
                        tag="step") -> None:
     """Where a training step's time goes: host batch build, the
     payload's copy to the device, and the step (medians over an epoch's
     first 20 steps, each part synchronised), the tile occupancy of those
-    20 batches, and one step under torch.profiler."""
+    20 batches, and one step under torch.profiler, on the built
+    experiment `exp` (`_step_parts`)."""
     import numpy as np
     import torch
     from repro_torch.core.batching import batch_to_device
 
-    exp = _step_parts(sets)
     backend, engine = exp.engine.backend, exp.engine
     state = engine.init_state()
     build, copy, step, hosts = [], [], [], []
@@ -848,10 +961,12 @@ def phase_step_profile(results: dict, sets=TRAIN_SETS, key="train_step",
     _print_profile(f"{tag}: one step profiled", prof)
 
 
-def phase_step_parity(results: dict, sets=TRAIN_SETS, key="step_parity",
+def phase_step_parity(results: dict, exp, key="step_parity",
                       tag="parity") -> None:
     """One gcn_loss + backward, same params and batch (dropout 0), on the
-    GPU (kernels) and on the CPU (plain versions)."""
+    GPU (kernels) and on the CPU (plain versions): one launch of each
+    kernel per layer on the GPU, none on the CPU; `exp` as in
+    `phase_step_profile`."""
     import dataclasses
     import torch
     from repro_torch.core.batching import batch_to_device
@@ -859,7 +974,6 @@ def phase_step_parity(results: dict, sets=TRAIN_SETS, key="step_parity",
     from repro_torch.kernels import block_spmm
     from repro_torch.nn.tree import tree_leaves, tree_map
 
-    exp = _step_parts(sets)
     cfg = dataclasses.replace(exp.cfg, dropout=0.0)
     params = init_params(cfg, generator=torch.Generator().manual_seed(3),
                          device="cpu")
@@ -895,8 +1009,10 @@ def phase_step_parity(results: dict, sets=TRAIN_SETS, key="step_parity",
           f"{out['cpu'][0]:.6f} (rel {loss_err:.3e}, bound {STEP_TOL}); "
           f"worst grad err / bound {worst:.3f}; launches GPU "
           f"{out['cuda'][2]}, CPU {out['cpu'][2]}")
+    layers = cfg.num_layers
     if not loss_err <= STEP_TOL or not worst <= 1.0 \
-            or out["cuda"][2] != (5, 5) or out["cpu"][2] != (0, 0):
+            or out["cuda"][2] != (layers, layers) \
+            or out["cpu"][2] != (0, 0):
         raise AssertionError(f"GPU step disagrees with the CPU step: "
                              f"{results[key]}")
 
@@ -992,59 +1108,83 @@ def _served_parity(engine, results: dict, key: str, tag: str):
     return ids
 
 
-def phase_serve(results: dict, work: pathlib.Path,
-                ck: pathlib.Path) -> int:
-    """Serve the checkpoint in `ck` (the one phase 3 trained)."""
+def _serve_checkpoint(results: dict, work: pathlib.Path, ck: pathlib.Path,
+                      preset: str = "ppi_sota", sets=(), key: str = "serve",
+                      tag: str = "serve", graph=None):
+    """`serve_gcn.main --verify-parity` on the checkpoint in `ck`: its
+    block-ELL launches counted from 0 (non-empty clusters x
+    propagations), its latency rows, then the served logits of a rebuilt
+    engine against the host oracle. A `graph` given is the preset's
+    (built otherwise), the CLI's too (`_prepared_graph`). Returns
+    (launches, engine, parts, ids)."""
     import numpy as np
     from repro_torch.core.experiment import (build_gcn_config, build_graph,
-                                             build_partition, preset)
+                                             build_partition)
     from repro_torch.kernels import block_spmm
     from repro_torch.launch import serve_gcn
+    from repro_torch.launch.run_experiment import load_spec
     from repro_torch.runtime.checkpoint import CheckpointManager
     from repro_torch.serve import ServeEngine
 
-    spec = preset("ppi_sota")
-    graph = build_graph(spec)
+    spec = load_spec(_spec_args(sets, preset))
+    prepared = graph
+    if graph is None:
+        graph = build_graph(spec)
     cfg = build_gcn_config(spec, graph)
     parts, _ = build_partition(spec, graph)
     nonempty = int((np.bincount(parts, minlength=spec.partition.num_parts)
                     > 0).sum())
     propagations = cfg.num_layers + int(cfg.precompute_ax)
     step = CheckpointManager(str(ck)).latest_valid_step()
-    bench_path = work / "serve_bench.json"
-    print(f"[serve] ppi_sota: {graph.num_nodes} nodes, {graph.num_edges} "
+    bench_path = work / f"{key}_bench.json"
+    print(f"[{tag}] {preset}: {graph.num_nodes} nodes, {graph.num_edges} "
           f"edge slots, {nonempty} non-empty clusters, {cfg.num_layers} "
           f"layers x {cfg.hidden_dim} wide; trained checkpoint step {step}")
+    argv = ["--preset", preset, "--checkpoint-dir", str(ck), "--queries",
+            "1024", "--verify-parity", "--bench-out", str(bench_path)]
+    for s in sets:
+        argv += ["--set", s]
 
     # --- the main path: every launch count starts at 0 here -------------
     block_spmm.LAUNCHES = 0
-    rc = serve_gcn.main(["--preset", "ppi_sota", "--checkpoint-dir",
-                         str(ck), "--queries", "1024",
-                         "--bench-out", str(bench_path)])
+    with _prepared_graph(spec, prepared):
+        rc = serve_gcn.main(argv)
     launches = block_spmm.LAUNCHES
     # ---------------------------------------------------------------------
     if rc != 0:
         raise AssertionError(f"serve_gcn returned {rc}")
     expected = nonempty * propagations
-    print(f"[serve] block_ell_spmm launches: {launches} (expected "
+    print(f"[{tag}] block_ell_spmm launches: {launches} (expected "
           f"{nonempty} clusters x {propagations} propagations = "
           f"{expected})")
     if launches != expected:
         raise AssertionError(f"launch count {launches} != {expected}")
     bench = json.loads(bench_path.read_text())
-    results["serve"] = bench
+    results[key] = bench
     for row in bench["rows"]:
         if "p50_ms" in row:
-            print(f"[serve] {row['name']}: {row['requests']} req  "
+            print(f"[{tag}] {row['name']}: {row['requests']} req  "
                   f"p50 {row['p50_ms']:.4f} ms  p99 {row['p99_ms']:.4f} ms")
         else:
-            print(f"[serve] {row['name']}: {row['seconds']:.4f} s "
+            print(f"[{tag}] {row['name']}: {row['seconds']:.4f} s "
                   f"({row['warmed_clusters']} clusters)")
-    print(f"[serve] QPS {bench['qps']:.1f} over {bench['queries']} lookups")
+    print(f"[{tag}] QPS {bench['qps']:.1f} over {bench['queries']} lookups")
 
     # --- parity of the served logits with the host oracle ---------------
-    engine = ServeEngine.from_checkpoint(spec, str(ck), device="cuda")
-    ids = _served_parity(engine, results, "serve_parity", "serve")
+    engine = ServeEngine.from_checkpoint(spec, str(ck), device="cuda",
+                                         graph=graph)
+    ids = _served_parity(engine, results, f"{key}_parity", tag)
+    return launches, engine, parts, ids
+
+
+def phase_serve(results: dict, work: pathlib.Path,
+                ck: pathlib.Path) -> int:
+    """Serve the checkpoint in `ck` (the one phase 3 trained), then where
+    the serving time goes and the lazy re-embed of one cluster."""
+    import numpy as np
+    from repro_torch.kernels import block_spmm
+
+    launches, engine, parts, ids = _serve_checkpoint(results, work, ck)
     _breakdown(engine, results)
 
     # --- lazy halo re-embed of an invalidated cluster --------------------
@@ -1183,15 +1323,25 @@ def phase_flash(results: dict) -> dict:
     return main
 
 
+def _device_events_ms(prof) -> dict:
+    """Device time by name (kernels, copies, memsets) summed straight from
+    a trace's raw events: `key_averages()` builds a Python object per
+    event, which takes minutes for hundreds of thousands of launches
+    (xlstm-1.3b's sLSTM loop), and has come back without the device
+    events of a trace that holds them."""
+    from torch.autograd import DeviceType
+    device = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            name = evt.name()
+            device[name] = device.get(name, 0.0) + evt.duration_ns() / 1e6
+    return device
+
+
 def _profile(fn, top_n: int = 10) -> dict:
     """Run fn once under torch.profiler: wall ms, device busy ms, idle
-    share and device time by kernel. The device events (kernels,
-    copies, memsets) are summed by name straight from the trace's raw
-    events: `key_averages()` builds a Python object per event, which
-    takes minutes for a prefill of hundreds of thousands of launches
-    (xlstm-1.3b's sLSTM loop)."""
+    share and device time by kernel (`_device_events_ms`)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1200,11 +1350,7 @@ def _profile(fn, top_n: int = 10) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = {}
-    for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() == DeviceType.CUDA:
-            name = evt.name()
-            device[name] = device.get(name, 0.0) + evt.duration_ns() / 1e6
+    device = _device_events_ms(prof)
     busy = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:top_n]
     # (name, ms) pairs: names cut to 80 characters can collide
@@ -1452,8 +1598,8 @@ def phase_saint(results: dict, work: pathlib.Path) -> dict:
     from repro_torch.launch import run_experiment
 
     launches = {}
-    for sampler, epochs in SAINT_RUNS:
-        argv = _train_argv(work, sampler, SAINT_SETS + [
+    for sampler, epochs, extra in SAINT_RUNS:
+        argv = _train_argv(work, sampler, SAINT_SETS + extra + [
             f"batch.sampler={sampler}", f"run.epochs={epochs}",
             "run.eval_every=0"])
         print(f"[saint] run_experiment {' '.join(argv)}")
@@ -1492,9 +1638,10 @@ def phase_saint(results: dict, work: pathlib.Path) -> dict:
         if sampler == "saint_node" and not losses[1] < losses[0]:
             raise AssertionError(f"saint_node: loss not falling: {losses}")
         launches[sampler] = got
-    for sampler, _ in SAINT_RUNS:
-        phase_step_profile(results, SAINT_SETS + [f"batch.sampler={sampler}"],
-                           key=f"{sampler}_step", tag=f"{sampler} step")
+    for sampler, _, _ in SAINT_RUNS:
+        phase_step_profile(results, _step_parts(
+            SAINT_SETS + [f"batch.sampler={sampler}"]),
+            key=f"{sampler}_step", tag=f"{sampler} step")
     cl, node = (results["train_step"]["occupancy"],
                 results["saint_node_step"]["occupancy"])
     print(f"[saint] live K slots per row-block: cluster batches "
@@ -1505,8 +1652,9 @@ def phase_saint(results: dict, work: pathlib.Path) -> dict:
           f"{100 * cl['live_tile_fill']:.2f}%, saint_node "
           f"{100 * node['live_tile_fill']:.2f}%")
     key = "saint_step_parity"
-    phase_step_parity(results, SAINT_SETS + ["batch.sampler=saint_node"],
-                      key=key, tag="saint parity")
+    phase_step_parity(results, _step_parts(
+        SAINT_SETS + ["batch.sampler=saint_node"]), key=key,
+        tag="saint parity")
     if not results[key]["loss_weights_fractional"]:
         raise AssertionError("the SAINT batch carries no fractional loss "
                              "weights")
@@ -1670,9 +1818,10 @@ def phase_real(results: dict, work: pathlib.Path) -> dict:
             "block_ell_spmm": 5 * steps, "block_ell_spmm_fused": 5 * steps} \
             or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"ppi_real training: {row}")
-    phase_step_profile(results, REAL_SETS, key="real_step", tag="real step")
-    phase_step_parity(results, REAL_SETS, key="real_step_parity",
-                      tag="real parity")
+    phase_step_profile(results, _step_parts(REAL_SETS), key="real_step",
+                       tag="real step")
+    phase_step_parity(results, _step_parts(REAL_SETS),
+                      key="real_step_parity", tag="real parity")
     return launches
 
 
@@ -2706,8 +2855,8 @@ def _train_parity(smi: str) -> dict:
 def _train_cfg(name: str):
     """(cfg, what was cut, whether the step holds AdamW state): full
     width, the largest number of groups whose params stay under
-    TRAIN_CUT_PARAMS, at least one; a config still above it (dbrx-132b)
-    takes the gradient alone."""
+    TRAIN_CUT_PARAMS, at least one; a config above TRAIN_ADAM_PARAMS
+    (dbrx-132b) takes the gradient alone."""
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     from repro_torch.models.spec import spec_params
@@ -2718,7 +2867,7 @@ def _train_cfg(name: str):
         if spec_params(lm.spec_params(cfg)) <= TRAIN_CUT_PARAMS or g == 1:
             break
     n = spec_params(lm.spec_params(cfg))
-    adam = n <= TRAIN_CUT_PARAMS
+    adam = n <= TRAIN_ADAM_PARAMS
     cut = "full depth" if cfg.num_layers == full.num_layers else \
         f"{cfg.num_layers} of {full.num_layers} layers"
     cut += f", {n / 1e9:.3f} B params"
@@ -2792,7 +2941,9 @@ def phase_lm_train(results: dict, smi: str, work: pathlib.Path) -> dict:
                                             for r in out1["history"]),
                               t2 - t1 - sum(r["seconds"]
                                             for r in out2["history"])],
-             launches={"steps 1-6": n1[0], "steps 7-8": n2[0]},
+             launches={f"steps 1-{TRAIN_STEPS[0]}": n1[0],
+                       f"steps {TRAIN_STEPS[0] + 1}-{TRAIN_STEPS[1]}":
+                       n2[0]},
              launches_per_step=per_step, peak=peak)
     print(f"[lm-train] 16a llama3.2-1b (16 x 2048, "
           f"{spec_params(lm.spec_params(cfg)) / 1e9:.3f} B params), B 4 x "
@@ -3025,18 +3176,21 @@ def _shard_timed(cfg, mesh, smi: str) -> dict:
     return out
 
 
-def _free_port() -> int:
+def _free_ports(n: int) -> list:
+    """n distinct free ports (bound all at once while they are chosen)."""
     import socket
-    with socket.socket() as s_:
-        s_.bind(("127.0.0.1", 0))
-        return s_.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for s_ in socks:
+            s_.bind(("127.0.0.1", 0))
+        return [s_.getsockname()[1] for s_ in socks]
 
 
-def _shard_cli(smi: str) -> dict:
+def _shard_cli(smi: str, port: int) -> dict:
     """17b: `launch/train.py --mesh host` under torchrun, one rank."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
            "1", "--master_addr", "127.0.0.1", "--master_port",
-           str(_free_port()), "-m", "repro_torch.launch.train", *SHARD_CLI]
+           str(port), "-m", "repro_torch.launch.train", *SHARD_CLI]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -3062,11 +3216,11 @@ def _shard_cli(smi: str) -> dict:
     return res
 
 
-def _shard_serve_cli(smi: str) -> dict:
+def _shard_serve_cli(smi: str, port: int) -> dict:
     """17d: `launch/serve.py --mesh host` under torchrun, one rank."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
            "1", "--master_addr", "127.0.0.1", "--master_port",
-           str(_free_port()), "-m", "repro_torch.launch.serve",
+           str(port), "-m", "repro_torch.launch.serve",
            *SHARD_SERVE_CLI]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
@@ -3294,10 +3448,21 @@ def _shard_serve(smi: str, results: dict) -> dict:
     return res
 
 
-def phase_shard(results: dict, smi: str) -> dict:
+def _dryruns_start() -> list:
+    """Phase 17c's dry-runs, started (`_dryrun_start`): the LM cells of
+    DRYRUN_LM, then the GCN variants last."""
+    return [_dryrun_start(["repro_torch.launch.dryrun", "--arch", arch,
+                           "--shape", "train_4k", "--mesh", "pod",
+                           "--force"]) for arch in DRYRUN_LM] + [
+        _dryrun_start(["repro_torch.launch.dryrun_gcn", "--variant",
+                       "all"])]
+
+
+def phase_shard(results: dict, smi: str, procs: list) -> dict:
     """Phase 17: the sharded train step on the card (a), the CLI's
-    `--mesh host` under torchrun (b), the dry-runs on the host (c);
-    returns the flash launches of (a)'s sharded steps."""
+    `--mesh host` under torchrun (b), the dry-runs on the host (c), whose
+    processes join `procs`; returns the flash launches of (a)'s sharded
+    steps."""
     from repro_torch.launch.mesh import (HARDWARE, HBM_BW, NVLINK_BW,
                                          PEAK_FLOPS_BF16)
 
@@ -3307,20 +3472,16 @@ def phase_shard(results: dict, smi: str) -> dict:
         out["sharded_serve"] = _shard_serve(smi, results)
     # (c) starts once (a) and (d)'s timed runs are done: the dry-runs use
     # the host's CPU only, so they run beside the CLIs and time nothing
-    t_dry = time.perf_counter()
-    dry_lm = [_dryrun_start(["repro_torch.launch.dryrun", "--arch", arch,
-                             "--shape", "train_4k", "--mesh", "pod",
-                             "--force"]) for arch in DRYRUN_LM]
-    dry_gcn = _dryrun_start(["repro_torch.launch.dryrun_gcn", "--variant",
-                             "all"])
-    try:
-        out["cli"] = _shard_cli(smi)
-        out["serve_cli"] = _shard_serve_cli(smi)
-    except BaseException:
-        for _, _, proc in dry_lm + [dry_gcn]:
-            proc.kill()
-            proc.communicate()
-        raise
+    dry = _dryruns_start()
+    procs += [proc for _, _, proc in dry]
+    dry_lm, dry_gcn = dry[:-1], dry[-1]
+    # both CLIs at once: each is a world of 1 on its own port, and neither
+    # times more than its own wall
+    ports = _free_ports(2)
+    with ThreadPoolExecutor(2) as pool:
+        cli = pool.submit(_shard_cli, smi, ports[0])
+        serve_cli = pool.submit(_shard_serve_cli, smi, ports[1])
+        out["cli"], out["serve_cli"] = cli.result(), serve_cli.result()
 
     lm = [rec for arch, started in zip(DRYRUN_LM, dry_lm)
           for rec in _dryrun_finish(started, [
@@ -3329,7 +3490,7 @@ def phase_shard(results: dict, smi: str) -> dict:
     gcn = _dryrun_finish(dry_gcn, [
         f"clustergcn-ppi-sota__train_cluster__pod__{v}.json"
         for v in gcn_variants])
-    dry_s = time.perf_counter() - t_dry
+    dry_s = time.perf_counter() - min(t0 for _, t0, _ in dry)
     rows = []
     for rec in lm + gcn:
         r = rec["roofline"]
@@ -3358,8 +3519,8 @@ def phase_shard(results: dict, smi: str) -> dict:
     ratio = base["flops_per_device"] / GCN_REF_FLOPS
     print(f"[shard] 17c gcn base: {ratio:.4f} x the reference's 1-device "
           f"step ({GCN_REF_FLOPS:.4e} FLOP, jax 0.9 on the CPU); "
-          f"{n_ar} gradient all-reduce; dry-runs took {dry_s:.1f} s beside "
-          f"(b)")
+          f"{n_ar} gradient all-reduce; dry-runs read back {dry_s:.1f} s "
+          f"after their start, beside (b)")
     if not (all(r["status"] == "ok" for r in lm + gcn) and n_ar == 1
             and abs(ratio - 1) <= 0.02
             and gcn[3]["flops_per_device"] < base["flops_per_device"]):
@@ -3374,14 +3535,518 @@ def phase_shard(results: dict, smi: str) -> dict:
             out["sharded_serve"]["launches_total"]}
 
 
+GRAPH_ARRAYS = ("indptr", "indices", "data", "features", "labels",
+                "train_mask", "val_mask", "test_mask")
+
+
+def _save_graph(graph, path: pathlib.Path) -> None:
+    """A CSRGraph's arrays as .npy files (uncompressed: seconds, where
+    `CSRGraph.save`'s compressed npz of Amazon2M takes minutes)."""
+    import numpy as np
+    path.mkdir(parents=True, exist_ok=True)
+    for k in GRAPH_ARRAYS:
+        np.save(path / f"{k}.npy", getattr(graph, k))
+
+
+def _load_graph(path: pathlib.Path):
+    import numpy as np
+    from repro_torch.graph.csr import CSRGraph
+    return CSRGraph(**{k: np.load(path / f"{k}.npy") for k in GRAPH_ARRAYS})
+
+
+@contextlib.contextmanager
+def _prepared_graph(spec, graph):
+    """While the body runs (a CLI, which builds its own graph),
+    `build_graph` of `spec`'s data section returns `graph`, the graph the
+    prep child generated from that same section (the generators are
+    seeded, so it is the graph a fresh build makes), instead of
+    generating it again: ≈100 s for Amazon2M on the card's host. Fails
+    unless the body built a graph and every one it built was `graph`.
+    With no graph, the body runs as it is."""
+    if graph is None:
+        yield
+        return
+    from repro_torch.core import experiment
+    taken = []
+
+    def wrap(build):
+        def prepared(s):
+            taken.append(s.data == spec.data)
+            return graph if taken[-1] else build(s)
+        return prepared
+    with _patched(experiment, "build_graph", wrap):
+        yield
+    if not taken or not all(taken):
+        raise AssertionError(f"{spec.data.name}: a build_graph in the CLI "
+                             f"did not take the prep child's graph "
+                             f"(taken: {taken})")
+
+
+def _write_json(path: pathlib.Path, obj) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(obj))
+    tmp.replace(path)                    # the parent polls `path`
+
+
+def scale_prep(out_dir: str, name: str) -> int:
+    """`chip_smoke.py --scale-prep <dir> <preset>`: generate the preset's
+    phase-18 graph, save its arrays under <dir>/<preset>/
+    (`_save_graph`) and write <dir>/<preset>.graph.json; then partition
+    it through the preset's host stages, into the partition cache under
+    $REPRO_DATASETS_CACHE that phase 18's builds read, and write
+    <dir>/<preset>.json."""
+    import resource
+    import numpy as np
+    from repro_torch.core.experiment import build_graph, build_partition
+    from repro_torch.launch.run_experiment import load_spec
+
+    t_start, out = time.perf_counter(), pathlib.Path(out_dir)
+    spec = load_spec(_spec_args(SCALE_SETS, name))
+    t0 = time.perf_counter()
+    graph = build_graph(spec)
+    generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _save_graph(graph, out / name)
+    row = dict(nodes=graph.num_nodes, edge_slots=graph.num_edges,
+               generate_s=generate_s, save_s=time.perf_counter() - t0,
+               graph_dir=str(out / name),
+               graph_ready_s=time.perf_counter() - t_start)
+    _write_json(out / f"{name}.graph.json", row)
+    parts, stats = build_partition(spec, graph)
+    sizes = np.bincount(parts, minlength=stats.num_parts)
+    row.update(partition_s=stats.seconds, cached=stats.cached,
+               num_parts=stats.num_parts, nonempty=int((sizes > 0).sum()),
+               within_fraction=stats.within_fraction,
+               imbalance=stats.imbalance, min_part=stats.min_part,
+               max_part=stats.max_part,
+               ready_s=time.perf_counter() - t_start,
+               peak_rss_gib=resource.getrusage(resource.RUSAGE_SELF)
+               .ru_maxrss / 2 ** 20)
+    _write_json(out / f"{name}.json", row)
+    print(f"[scale-prep] {name}: {row}", flush=True)
+    return 0
+
+
+def host_oracle(name: str, scale: str = "1.0") -> int:
+    """`chip_smoke.py --host-oracle <preset> [scale]`: the host oracle's
+    full-graph evaluation (`core/trainer.py` `full_graph_logits`, behind
+    every evaluation and serving's parity check) of the preset's model,
+    seeded init, on its phase-18 graph at `scale`, timed with Â's
+    products split by rows over the host's cores (`host_spmm`) and with
+    one scipy call each, in turns (rows, one call, rows); the logits of
+    both must be bit-equal. Needs no card; not part of a default run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import trainer
+    from repro_torch.core.experiment import build_gcn_config, build_graph
+    from repro_torch.core.gcn import init_params
+    from repro_torch.launch.run_experiment import load_spec
+
+    spec = load_spec(_spec_args(SCALE_SETS + [f"data.scale={scale}"], name))
+    graph = build_graph(spec)
+    cfg = build_gcn_config(spec, graph)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    one_call = functools.partial(_patched, trainer, "host_spmm",
+                                 lambda _: lambda a, x: a @ x)
+    rows, runs = contextlib.nullcontext, []
+    for label, ctx in (("rows", rows), ("one call", one_call),
+                       ("rows", rows)):
+        with ctx():
+            t0 = time.perf_counter()
+            logits = trainer.full_graph_logits(
+                params, graph, cfg, spec.batch.norm, spec.batch.diag_lambda)
+            runs.append((label, time.perf_counter() - t0, logits))
+    try:
+        card = _smi()
+    except (OSError, subprocess.CalledProcessError):
+        card = "no card"
+    print(f"[host-oracle] {name} at scale {scale}: {graph.num_nodes} nodes, "
+          f"{graph.num_edges} edge slots, {cfg.num_layers} layers x "
+          f"{cfg.hidden_dim}; {os.cpu_count()} host cores ({card})")
+    for label, secs, _ in runs:
+        print(f"[host-oracle] full_graph_logits, {label}: {secs:.3f} s")
+    same = all(np.array_equal(runs[0][2], r[2]) for r in runs[1:])
+    print(f"[host-oracle] logits bit-equal: {same}")
+    return 0 if same else 1
+
+
+def _scale_prep_start(work: pathlib.Path) -> dict:
+    """One `--scale-prep` child per preset, each on one host core without
+    the card, writing into this run's dataset cache."""
+    out = work / "scale_prep"
+    out.mkdir()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               REPRO_DATASETS_CACHE=str(work / "datasets"))
+    prep = {}
+    for name in SCALE_PRESETS:
+        log = out / f"{name}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--scale-prep",
+                 str(out), name], env=env, cwd=str(ROOT), stdout=f,
+                stderr=subprocess.STDOUT)
+        prep[name] = dict(proc=proc, out=out, log=log)
+    return prep
+
+
+def _scale_prep_wait(prep: dict, name: str, stage: str) -> dict:
+    """The `--scale-prep` child's row for preset `name` once its graph
+    (stage "graph") or its partition (stage "partition", and the child
+    has exited) is ready, waiting at most SCALE_PREP_TIMEOUT_S; a failed
+    child fails the run."""
+    child, t0 = prep[name], time.perf_counter()
+    path = child["out"] / (f"{name}.graph.json" if stage == "graph"
+                           else f"{name}.json")
+    while True:
+        rc = child["proc"].poll()
+        if rc not in (None, 0) or (rc == 0 and not path.exists()):
+            raise AssertionError(f"the {name} prep child exited {rc}: "
+                                 f"{child['log'].read_text()[-3000:]}")
+        if path.exists() and (rc == 0 or stage == "graph"):
+            break
+        if time.perf_counter() - t0 > SCALE_PREP_TIMEOUT_S:
+            child["proc"].kill()
+            child["proc"].wait()
+            raise AssertionError(f"the {name} prep child gave no {stage} "
+                                 f"within {SCALE_PREP_TIMEOUT_S} s")
+        time.sleep(1.0)
+    r = json.loads(path.read_text())
+    print(f"[scale] {name} prep child: {stage} ready "
+          f"{r['ready_s' if stage == 'partition' else 'graph_ready_s']:.1f} "
+          f"s after the child's start (one host core); phase 18 waited "
+          f"{time.perf_counter() - t0:.1f} s for it")
+    if stage == "graph":
+        print(f"[scale] {name}: {r['nodes']} nodes, {r['edge_slots']} edge "
+              f"slots, generated in {r['generate_s']:.2f} s")
+    else:
+        print(f"[scale] {name}: partition into {r['num_parts']} parts "
+              f"({r['nonempty']} non-empty) in {r['partition_s']:.2f} s, "
+              f"within-cluster share {r['within_fraction']:.4f}, imbalance "
+              f"{r['imbalance']:.4f} (sizes {r['min_part']}-"
+              f"{r['max_part']}); the child's peak RSS "
+              f"{r['peak_rss_gib']:.2f} GiB")
+    return r
+
+
+@contextlib.contextmanager
+def _recorded_partitions(store: list):
+    """Record `stats.cached` of every `build_partition` while the body
+    runs (build_experiment, the serving engine, this script)."""
+    from repro_torch.core import experiment
+
+    def wrap(build):
+        def recording(spec, graph):
+            parts, stats = build(spec, graph)
+            store.append(stats.cached)
+            return parts, stats
+        return recording
+    with _patched(experiment, "build_partition", wrap):
+        yield
+
+
+def _batch_shape(exp) -> tuple:
+    """(nrb, K) of the first block-ELL batch of an experiment's epoch 0."""
+    adj = next(iter(exp.batcher.epoch(0))).adj
+    return tuple(int(n) for n in adj.blocks.shape[:2])
+
+
+def _scale_kernels(results: dict, name: str, nrb: int, K: int,
+                   smi: str) -> list:
+    """The fused kernel at the recipe's layer widths and the SpMM at its
+    backward widths (transposed tiles, row_k_t given, every slot live),
+    fp32, on one real batch's nrb x K at B 128, against their plain
+    versions and themselves, with the library yardstick."""
+    import torch
+    rows = []
+    for n, (D, F) in enumerate(SCALE_FUSED[name]):
+        row = _fused_case(results, 2000 + 10 * n, nrb, K, 128, nrb, D, F,
+                          torch.float32, "full", library=True)
+        _print_vs_library(f"fused {D} -> {F} ({name}, {smi})", row,
+                          "addmm+bmm")
+        rows.append(dict(row, preset=name, kernel="block_ell_spmm_fused"))
+    for n, F in enumerate(SCALE_BWD[name]):
+        row = _spmm_case(results, 2100 + 10 * n, nrb, K, 128, nrb, F,
+                         torch.float32, "full", library=True)
+        _print_vs_library(f"spmm backward F {F} ({name}, {smi})", row, "bmm")
+        rows.append(dict(row, preset=name, kernel="block_ell_spmm"))
+    return rows
+
+
+def _scale_vrgcn(results: dict, graph, cfg, spec, smi: str) -> dict:
+    """VR-GCN (r 2, batch 512, AdamW 1e-2) one epoch on the card, on the
+    graph and model config the Cluster-GCN run trains."""
+    from repro_torch.core import baselines
+    from repro_torch.core.experiment import build_optimizer
+
+    steps = max(1, int(graph.train_mask.sum()) // BASELINE_BATCH)
+    mem0 = _reset_peak_memory()
+    res = baselines.train_vrgcn(graph, cfg, build_optimizer(spec), 1,
+                                batch_size=BASELINE_BATCH, r=2,
+                                device="cuda")
+    memory = _peak_memory(mem0)
+    want = 2 * graph.num_nodes * cfg.hidden_dim * 4
+    row = dict(epochs=1, steps_per_epoch=steps,
+               losses=[h["loss"] for h in res["history"]],
+               epoch_s=_epoch_seconds(res["history"]),
+               history_bytes=res["history_bytes"],
+               history_bytes_expected=want, **memory)
+    results["amazon2m_vrgcn"] = row
+    print(f"[table8] vrgcn: {steps} steps, loss {row['losses']}, epoch "
+          f"{row['epoch_s'][0]:.3f} s, peak device memory "
+          f"{memory['peak_gib']:.3f} GiB, host history "
+          f"{res['history_bytes']} bytes (expected 2 x N x "
+          f"{cfg.hidden_dim} x 4 = {want})  ({smi})")
+    if res["history_bytes"] != want or \
+            not all(math.isfinite(x) for x in row["losses"]):
+        raise AssertionError(f"VR-GCN on amazon2m: {row}")
+    return row
+
+
+def _table8(results: dict, smi: str) -> None:
+    """Cluster-GCN against VR-GCN on the same Amazon2M graph, the paper's
+    Table 8 beside (whole trainings on its own hardware)."""
+    cl, vr = results["amazon2m_train"], results["amazon2m_vrgcn"]
+    table = {"cluster_gcn": dict(
+        epochs=2, steps_per_epoch=cl["steps"] // 2, epoch_s=cl["epoch_s"],
+        peak_gib=cl["peak_gib"], host_history_bytes=0),
+        "vrgcn": dict(epochs=1, steps_per_epoch=vr["steps_per_epoch"],
+                      epoch_s=vr["epoch_s"], peak_gib=vr["peak_gib"],
+                      host_history_bytes=vr["history_bytes"])}
+    results["table8"] = dict(this_run=table, paper={
+        k: dict(train_s=v[0], memory_gb=v[1])
+        for k, v in PAPER_TABLE8.items()}, gpu=smi)
+    print(f"[table8] amazon2m, 2,449,029 nodes, 3 x 400, on {smi}")
+    print(f"[table8] {'method':<12} {'epochs':>6} {'steps/ep':>8} "
+          f"{'epoch s':>18} {'peak GiB':>9} {'host history B':>15}   "
+          f"paper: training s, memory GB")
+    for k, v in table.items():
+        secs = ", ".join(f"{x:.3f}" for x in v["epoch_s"])
+        print(f"[table8] {k:<12} {v['epochs']:>6} {v['steps_per_epoch']:>8} "
+              f"{secs:>18} {v['peak_gib']:9.3f} "
+              f"{v['host_history_bytes']:>15}   {PAPER_TABLE8[k][0]} s, "
+              f"{PAPER_TABLE8[k][1]} GB")
+
+
+def _scale_serving_cluster(results: dict, exp, smi: str) -> dict:
+    """Serving's tiles for one median-size Amazon2M cluster (the rows of
+    Â against all ⌈N/128⌉ column blocks, as `full_graph_embeddings`
+    builds them) at layer 1's width: K, tile bytes, host build, copy and
+    kernel ms, the product against its plain version, and the same
+    arithmetic for every cluster and layer. Measured, not changed."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.normalization import normalize_csr
+    from repro_torch.kernels.block_spmm import spmm_block_ell
+    from repro_torch.kernels.ref import spmm_block_ell_ref
+    from repro_torch.serve.embedding_cache import _cluster_tiles, _pad_to
+
+    graph, parts, B = exp.graph, exp.parts, 128
+    t0 = time.perf_counter()
+    ip, ix, dt = normalize_csr(graph.indptr, graph.indices, graph.data,
+                               exp.spec.batch.norm, exp.spec.batch.diag_lambda)
+    normalize_s = time.perf_counter() - t0
+    sizes = np.bincount(parts)
+    c = int(np.argsort(sizes, kind="stable")[len(sizes) // 2])
+    rows = np.where(parts == c)[0]
+    n_pad = _pad_to(graph.num_nodes, B)
+    t0 = time.perf_counter()
+    blocks, cols = _cluster_tiles(ip, ix, dt, rows, n_pad, B)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    nrb, K = blocks.shape[:2]
+    live = int((np.abs(blocks).reshape(nrb, K, -1).max(-1) > 0).sum())
+    x = torch.randn(n_pad, SCALE_SERVE_WIDTH, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bd = torch.from_numpy(blocks).cuda()
+    cd = torch.from_numpy(cols).cuda()
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    y = spmm_block_ell(bd, cd, x)
+    ref = spmm_block_ell_ref(bd, cd, x)
+    err = float((y - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    ms = _time_ms(lambda: spmm_block_ell(bd, cd, x), 5)
+    clusters, layers = int((sizes > 0).sum()), exp.cfg.num_layers
+    row = dict(cluster=c, rows=len(rows), nrb=nrb, K=K, live_tiles=live,
+               column_blocks=n_pad // B, tile_bytes=blocks.nbytes,
+               normalize_s=normalize_s, host_build_ms=build_ms,
+               copy_ms=copy_ms, kernel_ms=ms, max_abs_err=err,
+               tol=TOL["float32"] * scale, clusters=clusters, layers=layers,
+               whole_graph_tile_bytes=blocks.nbytes * clusters * layers,
+               whole_graph_s=(build_ms + copy_ms + ms) / 1e3 * clusters
+               * layers)
+    results["amazon2m_serving_cluster"] = row
+    print(f"[scale] amazon2m serving, one cluster ({len(rows)} rows, "
+          f"median size): nrb {nrb} x K {K} of {n_pad // B} column blocks "
+          f"({live} tiles hold a nonzero), {blocks.nbytes / 1e6:.1f} MB of "
+          f"tiles; host build {build_ms:.1f} ms, copy {copy_ms:.1f} ms, "
+          f"kernel {ms:.3f} ms at F {SCALE_SERVE_WIDTH}; max|Δ| vs plain "
+          f"{err:.3e} (tol {row['tol']:.3e}); x {clusters} clusters x "
+          f"{layers} layers: {row['whole_graph_tile_bytes'] / 1e12:.2f} TB "
+          f"of tiles, ≈{row['whole_graph_s']:.0f} s  ({smi})")
+    if not err <= row["tol"]:
+        raise AssertionError(f"the serving cluster's product disagrees "
+                             f"with its plain version: {row}")
+    del x, bd, cd, y, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def _scale_reddit(results: dict, work: pathlib.Path, smi: str,
+                  graph) -> dict:
+    """reddit at scale 1.0 on its prepared graph: train 2 epochs through
+    the CLI, the step split and one step card vs CPU, serve the
+    checkpoint, the kernels at its widths. Returns the launches of its
+    main paths."""
+    trained = phase_train(results, work, "reddit", SCALE_SETS,
+                          key="reddit_train", tag="scale reddit",
+                          graph=graph)
+    exp = _step_parts(SCALE_SETS, "reddit", graph)
+    nrb, K = _batch_shape(exp)
+    results["reddit_node_cap"] = exp.batcher.node_cap
+    print(f"[scale] reddit: node_cap {exp.batcher.node_cap}, a batch's "
+          f"block-ELL nrb {nrb} x K {K}")
+    phase_step_profile(results, exp, key="reddit_step", tag="reddit step")
+    phase_step_parity(results, exp, key="reddit_parity",
+                      tag="reddit parity")
+    del exp
+    serve_launches, *_ = _serve_checkpoint(
+        results, work, trained["checkpoint"], "reddit", SCALE_SETS,
+        key="reddit_serve", tag="scale reddit serve", graph=graph)
+    results.setdefault("scale_kernels", []).extend(
+        _scale_kernels(results, "reddit", nrb, K, smi))
+    return {"reddit_train": trained["launches"],
+            "reddit_serve": {"block_ell_spmm": serve_launches,
+                             "block_ell_spmm_fused": 0}}
+
+
+def _scale_amazon2m(results: dict, work: pathlib.Path, smi: str,
+                    graph) -> dict:
+    """amazon2m at scale 1.0 on its prepared graph: train 2 epochs
+    through the CLI (epoch s,
+    peak memory, host-evaluated test accuracy), the step split and one
+    step card vs CPU, the kernels at its widths, Table 8 beside the
+    VR-GCN run, one serving cluster measured. Returns the launches of
+    its main path."""
+    import torch
+    trained = phase_train(results, work, "amazon2m", SCALE_SETS,
+                          key="amazon2m_train", tag="scale amazon2m",
+                          graph=graph)
+    t = results["amazon2m_train"]
+    print(f"[scale] amazon2m: epoch s {t['epoch_s']}, peak device memory "
+          f"{t['peak_gib']:.3f} GiB, final {t['final']['split']} accuracy "
+          f"{t['final']['score']:.4f} (host evaluation)  ({smi})")
+    exp = _step_parts(SCALE_SETS, "amazon2m", graph)
+    nrb, K = _batch_shape(exp)
+    results["amazon2m_node_cap"] = exp.batcher.node_cap
+    print(f"[scale] amazon2m: node_cap {exp.batcher.node_cap}, a batch's "
+          f"block-ELL nrb {nrb} x K {K}")
+    phase_step_profile(results, exp, key="amazon2m_step",
+                       tag="amazon2m step")
+    phase_step_parity(results, exp, key="amazon2m_parity",
+                      tag="amazon2m parity")
+    results.setdefault("scale_kernels", []).extend(
+        _scale_kernels(results, "amazon2m", nrb, K, smi))
+    _table8(results, smi)
+    _scale_serving_cluster(results, exp, smi)
+    del exp
+    torch.cuda.empty_cache()
+    return {"amazon2m_train": trained["launches"]}
+
+
+def phase_scale(results: dict, work: pathlib.Path, smi: str,
+                prep: dict) -> dict:
+    """Phase 18: reddit and amazon2m at scale 1.0 on the block-ELL
+    kernels, Table 8 on the Amazon2M graph, Reddit served. Returns the
+    kernel launches of each main path."""
+    import torch
+
+    from repro_torch.core.experiment import build_gcn_config
+    from repro_torch.launch.run_experiment import load_spec
+
+    def graph_of(name):
+        r = _scale_prep_wait(prep, name, "graph")
+        t0 = time.perf_counter()
+        graph = _load_graph(pathlib.Path(r["graph_dir"]))
+        print(f"[scale] {name}: the prep child's graph loaded in "
+              f"{time.perf_counter() - t0:.1f} s (saved in "
+              f"{r['save_s']:.1f} s)")
+        return graph
+
+    launches, cached = {}, []
+    with _recorded_partitions(cached):
+        graph = graph_of("reddit")
+        rows = {"reddit": _scale_prep_wait(prep, "reddit", "partition")}
+        launches.update(_scale_reddit(results, work, smi, graph))
+        # VR-GCN needs no partition: it runs while amazon2m's is computed
+        spec = load_spec(_spec_args(SCALE_SETS, "amazon2m"))
+        graph = graph_of("amazon2m")
+        _scale_vrgcn(results, graph, build_gcn_config(spec, graph), spec,
+                     smi)
+        rows["amazon2m"] = _scale_prep_wait(prep, "amazon2m", "partition")
+        launches.update(_scale_amazon2m(results, work, smi, graph))
+    results["scale_prep"] = rows
+    del graph
+    torch.cuda.empty_cache()
+    results["scale_partition_cached"] = cached
+    print(f"[scale] {len(cached)} partition builds in this phase, cached: "
+          f"{cached}")
+    if not cached or not all(c is True for c in cached):
+        raise AssertionError("a phase-18 build partitioned anew instead of "
+                             f"reading the prep child's cache: {cached}")
+    return launches
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":
         return dp_worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--scale-prep":
+        return scale_prep(sys.argv[2], sys.argv[3])
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--host-oracle":
+        return host_oracle(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs "
               "only on a GPU", file=sys.stderr)
         return 1
+    from repro_torch.kernels import _build
+
+    run_t0 = time.perf_counter()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke-"))
+    old_cache = os.environ.get("REPRO_DATASETS_CACHE")
+    os.environ["REPRO_DATASETS_CACHE"] = str(work / "datasets")
+    procs = []                 # every child process this run starts
+    try:
+        return _run(run_t0, work, procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if old_cache is None:
+            os.environ.pop("REPRO_DATASETS_CACHE", None)
+        else:
+            os.environ["REPRO_DATASETS_CACHE"] = old_cache
+        os.environ.pop("REPRO_DATASETS_MIRROR", None)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _timed(phase_s: dict, label: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds printed and kept under `label`."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    phase_s[label] = time.perf_counter() - t0
+    print(f"[phase] {label}: {phase_s[label]:.1f} s")
+    return out
+
+
+def _run(run_t0: float, work: pathlib.Path, procs: list) -> int:
+    """Every phase, in order (main() owns the work directory and stops
+    the child processes listed in `procs`)."""
+    import torch
     from repro_torch.kernels import _build
 
     smi = _smi()
@@ -3425,39 +4090,40 @@ def main() -> int:
             raise AssertionError(f"{name}: ptxas reports spills (or no "
                                  f"kernel): {spilled or logs[name]}")
 
+    # phase 18's graphs and partitions, on the host beside phases 2-17
+    prep = _scale_prep_start(work)
+    procs += [child["proc"] for child in prep.values()]
+    phase_s = {"1 build": time.perf_counter() - run_t0}
     results = {"gpu": smi, "build_s": build_s, "flash_sm90_hgmma": hgmma,
-               "gcn_builds": gcn,
+               "gcn_builds": gcn, "phase_s": phase_s,
                "kernel_cases": [], "fused_cases": [], "flash_cases": []}
-    spmm_rows = phase_kernels(results)
-    fused_row = phase_fused(results)
-
-    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke-"))
-    old_cache = os.environ.get("REPRO_DATASETS_CACHE")
-    os.environ["REPRO_DATASETS_CACHE"] = str(work / "datasets")
-    try:
-        trained = phase_train(results, work)
-        phase_step_profile(results)
-        phase_step_parity(results)
-        phase_unfused(results, work)
-        serve_launches = phase_serve(results, work, trained["checkpoint"])
-        flash_row = phase_flash(results)
-        lm_launches = phase_lm_serve(results)
-        cold_launches = phase_cold_start(results, work)
-        saint_launches = phase_saint(results, work)
-        phase_baselines(results)
-        real_launches = phase_real(results, work)
-        dp_launches = phase_dp(results, work)
-        archs = phase_lm_archs(results, smi)
-        ssm = phase_lm_archs(results, smi, ARCH_SSM, "lm-ssm", "lm_ssm")
-        train_launches = phase_lm_train(results, smi, work)
-        shard_launches = phase_shard(results, smi)
-    finally:
-        if old_cache is None:
-            os.environ.pop("REPRO_DATASETS_CACHE", None)
-        else:
-            os.environ["REPRO_DATASETS_CACHE"] = old_cache
-        os.environ.pop("REPRO_DATASETS_MIRROR", None)
-        shutil.rmtree(work, ignore_errors=True)
+    print(f"[phase] 1 build: {phase_s['1 build']:.1f} s")
+    t = functools.partial(_timed, phase_s)
+    spmm_rows = t("2 spmm kernels", phase_kernels, results)
+    fused_row = t("2 fused kernels", phase_fused, results)
+    trained = t("3 train", phase_train, results, work)
+    t("3 step profile", lambda: phase_step_profile(
+        results, _step_parts(TRAIN_SETS)))
+    t("4 step parity", lambda: phase_step_parity(
+        results, _step_parts(TRAIN_SETS)))
+    t("5 unfused", phase_unfused, results, work)
+    serve_launches = t("6 serve", phase_serve, results, work,
+                       trained["checkpoint"])
+    flash_row = t("7 flash", phase_flash, results)
+    lm_launches = t("8 lm serve", phase_lm_serve, results)
+    cold_launches = t("9 cold start", phase_cold_start, results, work)
+    saint_launches = t("10 saint", phase_saint, results, work)
+    t("11 baselines", phase_baselines, results)
+    real_launches = t("12 real ppi", phase_real, results, work)
+    dp_launches = t("13 data parallel", phase_dp, results, work)
+    archs = t("14 lm archs", phase_lm_archs, results, smi)
+    ssm = t("15 lm ssm", phase_lm_archs, results, smi, ARCH_SSM, "lm-ssm",
+            "lm_ssm")
+    train_launches = t("16 lm train", phase_lm_train, results, smi, work)
+    shard_launches = t("17 shard", phase_shard, results, smi, procs)
+    scale_launches = t("18 scale", phase_scale, results, work, smi, prep)
+    results["wall_s"] = time.perf_counter() - run_t0
+    print(f"[phase] whole run: {results['wall_s']:.1f} s  ({smi})")
 
     def numbers(row):
         return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -3478,10 +4144,17 @@ def main() -> int:
                  "cold_start": cold_launches[name],
                  **{s: n[name] for s, n in saint_launches.items()},
                  "real_ppi": real_launches[name],
-                 **{s: n[name] for s, n in dp_launches.items()}}
+                 **{s: n[name] for s, n in dp_launches.items()},
+                 **{s: n[name] for s, n in scale_launches.items()}}
         if name == "block_ell_spmm":
             paths["serve"] = serve_launches
         return paths
+
+    def scale_rows(name):
+        # phase 18's cases at the reddit and amazon2m widths
+        return [dict(gcn_numbers(r), preset=r["preset"], shape={
+            k: r[k] for k in shape_keys if k in r})
+            for r in results["scale_kernels"] if r["kernel"] == name]
 
     spmm_paths = by_path("block_ell_spmm")
     fused_paths = by_path("block_ell_spmm_fused")
@@ -3497,6 +4170,7 @@ def main() -> int:
         "shape": {k: serve[k] for k in shape_keys if k in serve},
         "train_bwd": dict(gcn_numbers(bwd), shape={
             k: bwd[k] for k in shape_keys if k in bwd}),
+        "scale_shapes": scale_rows("block_ell_spmm"),
     }, {
         "name": "block_ell_spmm_fused",
         "route": "cuda",
@@ -3508,6 +4182,7 @@ def main() -> int:
         "function_flops": fused_row["function_flops"],
         "kernel_flops": fused_row["kernel_flops"],
         "shape": {k: fused_row[k] for k in shape_keys if k in fused_row},
+        "scale_shapes": scale_rows("block_ell_spmm_fused"),
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -31,7 +31,7 @@ import numpy as np
 
 import torch
 
-from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.csr import CSRGraph, group_members
 from repro_torch.graph.normalization import normalize_csr, normalize_dense
 from repro_torch.kernels.block_spmm import BlockEllAdj
 
@@ -301,8 +301,8 @@ class ClusterBatcher:
     def __post_init__(self):
         self.parts = np.asarray(self.parts)
         self.num_parts = int(self.parts.max()) + 1
-        self._members: List[Array] = [
-            np.where(self.parts == t)[0] for t in range(self.num_parts)]
+        self._members: List[Array] = group_members(self.parts,
+                                                   self.num_parts)
         sizes = np.array([len(m) for m in self._members])
         if self.node_cap is None:
             # capacity: q * (mean + 3σ of cluster size), padded to 128

@@ -232,6 +232,17 @@ def append_graph(graph: CSRGraph, *, num_new_nodes: int = 0,
         test_mask=_extend(graph.test_mask, false_pad, "test_mask"))
 
 
+def group_members(assign: Array, num_groups: int) -> list:
+    """`[np.where(assign == g)[0] for g in range(num_groups)]` for
+    `assign` in [0, num_groups): the same ascending index arrays from one
+    stable sort, O(N log N) where the loop is O(N·num_groups) (Amazon2M:
+    15,000 clusters over 2,449,029 nodes)."""
+    assign = np.asarray(assign)
+    order = np.argsort(assign, kind="stable")
+    counts = np.bincount(assign, minlength=num_groups)[:num_groups]
+    return np.split(order, np.cumsum(counts)[:-1])
+
+
 def edge_cut(graph: CSRGraph, parts: Array) -> int:
     """Number of directed edge slots crossing partitions."""
     parts = np.asarray(parts)

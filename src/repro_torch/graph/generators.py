@@ -15,7 +15,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.csr import CSRGraph, group_members
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +61,7 @@ def stochastic_block_model(spec: SBMSpec) -> CSRGraph:
     perm = rng.permutation(n)
     comm = comm[np.argsort(perm)]  # random assignment, same distribution
 
-    members = [np.where(comm == c)[0] for c in range(k)]
+    members = group_members(comm, k)
 
     # within-community edges
     srcs, dsts = [], []
@@ -138,7 +138,7 @@ def copurchase_graph(spec: CoPurchaseSpec) -> CSRGraph:
     w = rng.pareto(2.0, size=n) + 1.0
     total_edges = int(n * spec.avg_degree / 2)
 
-    members = [np.where(comm == c)[0] for c in range(k)]
+    members = group_members(comm, k)
     mweights = [w[m] / w[m].sum() if len(m) else None for m in members]
 
     n_within = int(total_edges * spec.within_frac)

@@ -45,6 +45,21 @@ def _row_of(indptr: np.ndarray) -> np.ndarray:
     return np.repeat(np.arange(len(indptr) - 1, dtype=np.int64), deg)
 
 
+def _last_max_per_run(keys: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """For sorted `keys`, the index of the last maximal value in each run
+    of equal keys, runs in order — the last element of each run after a
+    stable sort by (key, value), without the sort."""
+    if len(keys) == 0:
+        return np.zeros(0, np.intp)
+    change = keys[1:] != keys[:-1]
+    run = np.concatenate(([0], np.cumsum(change)))
+    run_max = np.maximum.reduceat(
+        values, np.flatnonzero(np.concatenate(([True], change))))
+    at_max = np.flatnonzero(values == run_max[run])
+    return at_max[np.concatenate((run[at_max[1:]] != run[at_max[:-1]],
+                                  [True]))]
+
+
 def _segment_argmax_per_row(indptr, indices, weights, tiebreak):
     """For each row, the neighbor with max edge weight (ties -> tiebreak
     noise). Returns (best_neighbor, has_neighbor_mask).
@@ -236,16 +251,14 @@ def _refine_lp(indptr, indices, weights, node_w, parts, p,
         # best foreign partition per node
         gain = conn - cur_conn[u_row]
         gain[is_cur] = -np.inf
-        # segment argmax over rows
-        o2 = np.lexsort((gain, u_row))
-        r2 = u_row[o2]
-        last = np.zeros(len(o2), bool)
-        if len(o2):
-            last[-1] = True
-            last[:-1] = r2[:-1] != r2[1:]
-        best_rows = r2[last]
-        best_gain = gain[o2[last]]
-        best_dest = u_part[o2[last]]
+        # segment argmax over rows: u_row comes sorted, so each row's
+        # entries are one run; the pick is the run's last entry of
+        # maximal gain (what the reference's stable lexsort by (row,
+        # gain) puts last), found without sorting
+        best = _last_max_per_run(u_row, gain)
+        best_rows = u_row[best]
+        best_gain = gain[best]
+        best_dest = u_part[best]
         movers = best_rows[best_gain > 1e-12]
         if len(movers) == 0:
             break

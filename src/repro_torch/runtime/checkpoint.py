@@ -118,7 +118,10 @@ def _shape(leaf) -> Tuple[int, ...]:
 
 
 def _crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+    # over the array's own buffer: `.tobytes()` would copy each leaf first
+    # (15 GB for llama3.2-1b's training state, at every save and twice at
+    # every restore); the checksum is the same
+    return zlib.crc32(np.ascontiguousarray(arr))
 
 
 def _flip_one_bit(path: pathlib.Path) -> None:

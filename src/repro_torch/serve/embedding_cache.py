@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gcn import GCN, GCNConfig, GCNLayer
-from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.csr import CSRGraph, group_members
 from repro_torch.graph.normalization import normalize_csr
 from repro_torch.kernels.block_spmm import spmm_block_ell
 from repro_torch.kernels.ops import block_ell_from_csr
@@ -126,8 +126,8 @@ def full_graph_embeddings(params: GCN, graph: CSRGraph, parts: np.ndarray,
     n_pad = _pad_to(n, block)
     parts = np.asarray(parts)
     num_parts = int(parts.max()) + 1
-    clusters = [rows for rows in (np.where(parts == c)[0]
-                                  for c in range(num_parts)) if len(rows)]
+    clusters = [rows for rows in group_members(parts, num_parts)
+                if len(rows)]
 
     def propagate(x: torch.Tensor) -> torch.Tensor:
         x_pad = torch.zeros((n_pad, x.shape[1]), dtype=torch.float32,
