@@ -1328,11 +1328,13 @@ def _device_events_ms(prof) -> dict:
     a trace's raw events: `key_averages()` builds a Python object per
     event, which takes minutes for hundreds of thousands of launches
     (xlstm-1.3b's sLSTM loop), and has come back without the device
-    events of a trace that holds them."""
+    events of a trace that holds them. User annotations (the ranges of
+    `repro_torch.runtime.trace` spans on the device) are left out."""
     from torch.autograd import DeviceType
     device = {}
     for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() == DeviceType.CUDA:
+        user = getattr(evt, "is_user_annotation", None)
+        if evt.device_type() == DeviceType.CUDA and not (user and user()):
             name = evt.name()
             device[name] = device.get(name, 0.0) + evt.duration_ns() / 1e6
     return device

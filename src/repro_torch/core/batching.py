@@ -34,6 +34,7 @@ import torch
 from repro_torch.graph.csr import CSRGraph, group_members
 from repro_torch.graph.normalization import normalize_csr, normalize_dense
 from repro_torch.kernels.block_spmm import BlockEllAdj
+from repro_torch.runtime import trace
 
 Array = np.ndarray
 
@@ -169,7 +170,8 @@ def subgraph_payload(graph: CSRGraph, nodes: Array, *, node_cap: int,
         raise ValueError("k_slots='auto' needs a pre-computed k_plan "
                          "(repro_torch.core.kslots.plan_k_buckets) — samplers "
                          "build one at init")
-    sub, _ = graph.subgraph(nodes)  # re-adds Δ links among chosen nodes
+    with trace.span("batch.subgraph"):
+        sub, _ = graph.subgraph(nodes)  # re-adds Δ links among chosen nodes
     b = len(nodes)
     cap = node_cap
 
@@ -181,69 +183,81 @@ def subgraph_payload(graph: CSRGraph, nodes: Array, *, node_cap: int,
         # holds this batch losslessly (repro_torch.core.kslots); an int is
         # used as-is (builders raise if it would drop tiles).
         from repro_torch.kernels.ops import block_ell_adj_from_csr
-        ip, ix, dt = normalize_csr(sub.indptr, sub.indices, sub.data,
-                                   norm, diag_lambda)
-        if k_slots == "auto":
-            # bucket picked inside the builder from the occupancy it
-            # computes anyway — no extra O(nnz) pass per batch
-            chooser = lambda nf, nt: \
-                k_plan.bucket_for(max(nf, nt, 1))  # noqa: E731
-            adj = block_ell_adj_from_csr(ip, ix, dt, n_cols=cap,
-                                         block=block_size,
-                                         n_rows=cap,
-                                         assume_unique=True,
-                                         k_chooser=chooser,
-                                         pool=tile_pool)
+        with trace.span("batch.normalize"):
+            ip, ix, dt = normalize_csr(sub.indptr, sub.indices, sub.data,
+                                       norm, diag_lambda)
+            trace.count("batch.adj_nnz", len(ix))
+        with trace.span("batch.tiles") as tiles:
+            if k_slots == "auto":
+                # bucket picked inside the builder from the occupancy it
+                # computes anyway — no extra O(nnz) pass per batch
+                chooser = lambda nf, nt: \
+                    k_plan.bucket_for(max(nf, nt, 1))  # noqa: E731
+                adj = block_ell_adj_from_csr(ip, ix, dt, n_cols=cap,
+                                             block=block_size,
+                                             n_rows=cap,
+                                             assume_unique=True,
+                                             k_chooser=chooser,
+                                             pool=tile_pool)
+            else:
+                k = cap // block_size if k_slots == "cap" else int(k_slots)
+                adj = block_ell_adj_from_csr(ip, ix, dt, n_cols=cap,
+                                             block=block_size,
+                                             k_slots=k, k_slots_t=k,
+                                             n_rows=cap,
+                                             assume_unique=True,
+                                             pool=tile_pool)
+            if tiles:
+                # row blocks × K of Â plus the same of Âᵀ: the tiles of
+                # block² elements each that the copy ships
+                tiles.count("batch.tile_slots",
+                            adj.block_cols.numel() + adj.block_cols_t.numel())
+                tiles.count("batch.block", block_size)
+    else:
+        with trace.span("batch.normalize"):
+            dense = np.zeros((cap, cap), np.float32)
+            row = np.repeat(np.arange(b), np.diff(sub.indptr))
+            dense[row, sub.indices] = sub.data
+            # re-normalize the combined adjacency (paper §6.2)
+            dense[:b, :b] = normalize_dense(dense[:b, :b], norm,
+                                            diag_lambda)
+            dense[b:, :] = 0.0
+            dense[:, b:] = 0.0
+            adj = dense
+
+    with trace.span("batch.features"):
+        feat_dim = graph.features.shape[1]
+        feats = np.zeros((cap, feat_dim), np.float32)
+        feats[:b] = graph.features[nodes]
+        if precompute_ax:
+            # host-side Â'·X (paper §6.2): aggregate once per batch, in fp32
+            # regardless of the training compute dtype; padding rows stay 0
+            if sparse_adj:
+                import scipy.sparse as sp
+                feats[:b] = sp.csr_matrix((dt, ix, ip),
+                                          shape=(b, b)) @ feats[:b]
+            else:
+                feats[:b] = adj[:b, :b] @ feats[:b]
+
+        labels_src = graph.labels
+        if labels_src.ndim == 1:
+            labels = np.zeros((cap,), np.int32)
         else:
-            k = cap // block_size if k_slots == "cap" else int(k_slots)
-            adj = block_ell_adj_from_csr(ip, ix, dt, n_cols=cap,
-                                         block=block_size,
-                                         k_slots=k, k_slots_t=k,
-                                         n_rows=cap,
-                                         assume_unique=True,
-                                         pool=tile_pool)
-    else:
-        dense = np.zeros((cap, cap), np.float32)
-        row = np.repeat(np.arange(b), np.diff(sub.indptr))
-        dense[row, sub.indices] = sub.data
-        # re-normalize the combined adjacency (paper §6.2)
-        dense[:b, :b] = normalize_dense(dense[:b, :b], norm, diag_lambda)
-        dense[b:, :] = 0.0
-        dense[:, b:] = 0.0
-        adj = dense
+            labels = np.zeros((cap, labels_src.shape[1]), np.float32)
+        labels[:b] = labels_src[nodes]
 
-    feat_dim = graph.features.shape[1]
-    feats = np.zeros((cap, feat_dim), np.float32)
-    feats[:b] = graph.features[nodes]
-    if precompute_ax:
-        # host-side Â'·X (paper §6.2): aggregate once per batch, in fp32
-        # regardless of the training compute dtype; padding rows stay 0
-        if sparse_adj:
-            import scipy.sparse as sp
-            feats[:b] = sp.csr_matrix((dt, ix, ip),
-                                      shape=(b, b)) @ feats[:b]
+        node_mask = np.zeros(cap, bool)
+        node_mask[:b] = True
+        loss_mask = np.zeros(cap, np.float32)
+        if graph.train_mask is not None:
+            loss_mask[:b] = graph.train_mask[nodes].astype(np.float32)
         else:
-            feats[:b] = adj[:b, :b] @ feats[:b]
-
-    labels_src = graph.labels
-    if labels_src.ndim == 1:
-        labels = np.zeros((cap,), np.int32)
-    else:
-        labels = np.zeros((cap, labels_src.shape[1]), np.float32)
-    labels[:b] = labels_src[nodes]
-
-    node_mask = np.zeros(cap, bool)
-    node_mask[:b] = True
-    loss_mask = np.zeros(cap, np.float32)
-    if graph.train_mask is not None:
-        loss_mask[:b] = graph.train_mask[nodes].astype(np.float32)
-    else:
-        loss_mask[:b] = 1.0
-    if loss_weights is not None:
-        loss_mask[:b] *= np.asarray(loss_weights, np.float32)
-    return ClusterBatch(adj=adj, features=feats, labels=labels,
-                        node_mask=node_mask, loss_mask=loss_mask,
-                        num_real=np.int32(b))
+            loss_mask[:b] = 1.0
+        if loss_weights is not None:
+            loss_mask[:b] *= np.asarray(loss_weights, np.float32)
+        return ClusterBatch(adj=adj, features=feats, labels=labels,
+                            node_mask=node_mask, loss_mask=loss_mask,
+                            num_real=np.int32(b))
 
 
 @dataclasses.dataclass
@@ -400,15 +414,17 @@ class ClusterBatcher:
     def _build(self, cluster_ids: Sequence[int], *,
                rng_ctx: Tuple[int, int],
                tile_pool) -> ClusterBatch:
-        nodes = self._batch_nodes(cluster_ids, rng_ctx=rng_ctx)
-        return subgraph_payload(self.graph, nodes, node_cap=self.node_cap,
-                                norm=self.norm,
-                                diag_lambda=self.diag_lambda,
-                                sparse_adj=self.sparse_adj,
-                                block_size=self.block_size,
-                                k_slots=self.k_slots, k_plan=self.k_plan,
-                                precompute_ax=self.precompute_ax,
-                                tile_pool=tile_pool)
+        # rng_ctx is the (epoch, step) the batch serves: its step id
+        with trace.span("batch.build", step=rng_ctx):
+            with trace.span("batch.nodes"):
+                nodes = self._batch_nodes(cluster_ids, rng_ctx=rng_ctx)
+            trace.count("batch.nodes_real", len(nodes))
+            return subgraph_payload(
+                self.graph, nodes, node_cap=self.node_cap, norm=self.norm,
+                diag_lambda=self.diag_lambda, sparse_adj=self.sparse_adj,
+                block_size=self.block_size, k_slots=self.k_slots,
+                k_plan=self.k_plan, precompute_ax=self.precompute_ax,
+                tile_pool=tile_pool)
 
     # ------------------------------------------------------------------
     def epoch(self, epoch_idx: int,
@@ -524,10 +540,31 @@ def batch_to_device(batch_tuple, device, non_blocking: bool = False):
     non_blocking on a CUDA device the host arrays are first copied into
     pinned memory, so a tile buffer the builder recycles later is never
     read by a copy still in flight."""
-    if isinstance(batch_tuple, list):
-        return [batch_to_device(b, device, non_blocking)
-                for b in batch_tuple]
     dev = torch.device(device)
+    with trace.span("batch.copy") as copy:
+        out = _to_device(batch_tuple, dev, non_blocking)
+        if copy:
+            copy.count("copy.bytes", sum(
+                t.numel() * t.element_size()
+                for p in (out if isinstance(out, list) else [out])
+                for t in payload_arrays(p) if t is not None))
+            copy.count("copy.pinned", int(non_blocking and dev.type == "cuda"))
+    return out
+
+
+def payload_arrays(batch) -> list:
+    """The arrays of a batch tuple, a BlockEllAdj's tensors (None where
+    it has no row_k) included, in order."""
+    out = []
+    for leaf in batch:
+        out.extend(leaf.tensors() if isinstance(leaf, BlockEllAdj)
+                   else [leaf])
+    return out
+
+
+def _to_device(batch_tuple, dev: torch.device, non_blocking: bool):
+    if isinstance(batch_tuple, list):
+        return [_to_device(b, dev, non_blocking) for b in batch_tuple]
 
     def move(a):
         if isinstance(a, BlockEllAdj):

@@ -49,7 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.batching import Sampler, batch_to_device
+from repro_torch.core.batching import (Sampler, batch_to_device,
+                                       payload_arrays)
 from repro_torch.core.gcn import GCNConfig, gcn_loss, init_params, micro_f1
 from repro_torch.core.precision import (all_finite, init_scale_state,
                                         policy_from_config, scale_loss,
@@ -62,7 +63,7 @@ from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.nn.optim import Optimizer, apply_updates
 from repro_torch.nn.tree import Tree, tree_leaves, tree_map
-from repro_torch.runtime import faults
+from repro_torch.runtime import faults, trace
 from repro_torch.runtime.resilience import StragglerDetector
 
 # deepest depth execution.prefetch="auto" will ever pick (it also bounds
@@ -72,6 +73,7 @@ AUTO_PREFETCH_MAX = 4
 # fit() must NOT clear an externally-installed fault plan when the
 # engine itself has none, so the no-plan path enters a null context
 _NULL_CTX = contextlib.nullcontext()
+_END = object()             # the end of an epoch's payload stream
 
 
 @dataclasses.dataclass
@@ -84,13 +86,15 @@ class TrainResult:
 def _loss_and_grads(params, batch, cfg, generator, spmm, spmm_xw,
                     scale=None):
     """(loss, aux, grads) of one batch; grads of loss·scale when scaled."""
-    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, aux = gcn_loss(live, batch, cfg, train=True, generator=generator,
-                         spmm=spmm, spmm_xw=spmm_xw)
-    target = loss if scale is None else scale_loss(loss, scale)
-    grads = iter(torch.autograd.grad(target, tree_leaves(live)))
-    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
-            tree_map(lambda _: next(grads), live))
+    with trace.span("step.forward"):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, aux = gcn_loss(live, batch, cfg, train=True,
+                             generator=generator, spmm=spmm, spmm_xw=spmm_xw)
+    with trace.span("step.backward"):
+        target = loss if scale is None else scale_loss(loss, scale)
+        grads = iter(torch.autograd.grad(target, tree_leaves(live)))
+        return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+                tree_map(lambda _: next(grads), live))
 
 
 def make_train_step(cfg: GCNConfig, opt: Optimizer,
@@ -110,7 +114,7 @@ def make_train_step(cfg: GCNConfig, opt: Optimizer,
         def step(params, opt_state, rng, batch):
             loss, aux, grads = _loss_and_grads(params, batch, cfg, rng,
                                                spmm, spmm_xw)
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("step.optimizer"):
                 updates, opt_state = opt.update(grads, opt_state, params)
                 params = apply_updates(params, updates)
             return params, opt_state, rng, loss, aux
@@ -119,7 +123,7 @@ def make_train_step(cfg: GCNConfig, opt: Optimizer,
     def scaled_step(params, opt_state, rng, scale_state, batch):
         loss, aux, grads = _loss_and_grads(params, batch, cfg, rng, spmm,
                                            spmm_xw, scale_state["scale"])
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("step.optimizer"):
             grads = unscale_grads(grads, scale_state["scale"])
             finite = all_finite(grads)
             updates, new_opt = opt.update(grads, opt_state, params)
@@ -129,16 +133,6 @@ def make_train_step(cfg: GCNConfig, opt: Optimizer,
             scale_state = update_scale_state(scale_state, finite, pol)
         return params, opt_state, rng, scale_state, loss, aux
     return faults.wrap_step_faults(scaled_step)
-
-
-def _arrays(batch) -> list:
-    """The arrays of a host batch tuple, a BlockEllAdj's tensors
-    included, in order."""
-    out = []
-    for leaf in batch:
-        out.extend(leaf.tensors() if isinstance(leaf, BlockEllAdj)
-                   else [leaf])
-    return out
 
 
 def _copy_batch(batch):
@@ -162,7 +156,7 @@ def _dp_groups(batches, n: int):
     pending, firsts = {}, {}
     for b in batches:
         key = tuple(None if a is None else tuple(a.shape)
-                    for a in _arrays(b))
+                    for a in payload_arrays(b))
         first = firsts.setdefault(key, [])
         if len(first) < n:
             first.append(_copy_batch(b))
@@ -569,6 +563,10 @@ class Engine:
         self.prefetch_timeout = float(prefetch_timeout)
         self.diverged = False
         self.straggler = StragglerDetector()
+        # the two timed sites of the loop: the fetch (timed while
+        # prefetch="auto" measures) and the step (the straggler check)
+        self._fetch = trace.Timer("engine.fetch")
+        self._step = trace.Timer("engine.step")
         try:
             self._start_seam = "start_step" in inspect.signature(
                 self.batcher.epoch).parameters
@@ -735,19 +733,6 @@ class Engine:
             return self._fit(resume)
 
     @staticmethod
-    def _timed_iter(it: Iterator, acc: List[float]) -> Iterator:
-        """Pass-through iterator accumulating time spent inside next(it)
-        into acc[0] — host batch build during the auto-prefetch warmup."""
-        while True:
-            t = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            acc[0] += time.perf_counter() - t
-            yield item
-
-    @staticmethod
     def _auto_prefetch_depth(ratio: float) -> int:
         """host_build_over_step ratio → prefetch depth: synchronous below
         5%, else ~2x the ratio, capped at AUTO_PREFETCH_MAX."""
@@ -765,7 +750,8 @@ class Engine:
                    f"(no checkpoints in {self.checkpoint.directory})")
                 + " — cold-starting from epoch 0", stacklevel=2)
         if not restored:
-            self.state = self.init_state()
+            with trace.setup_span("setup.init_state", step=None):
+                self.state = self.init_state()
             self.history = []
             self.global_step = 0
             self._position = (0, 0, [], [])
@@ -785,11 +771,15 @@ class Engine:
         if self.prefetch_auto:
             self._auto_depth = None
             self._auto_ratio = None
+        fetch, timed_step = self._fetch, self._step
         t0 = time.perf_counter()
         fit_error: Optional[BaseException] = None
+        # open from an epoch's end to the next epoch's first fetch
+        epoch_end = None
         try:
             self._fire("on_fit_start")
             for epoch in range(start_epoch, self.epochs):
+                since = time.perf_counter_ns() if trace.on() else 0
                 start = skip_steps if (skip_steps and seam) else 0
                 raw = (self.batcher.epoch(epoch, start_step=start)
                        if start else self.batcher.epoch(epoch))
@@ -808,60 +798,81 @@ class Engine:
                 transfer = functools.partial(batch_to_device,
                                              device=self.device,
                                              non_blocking=effective > 0)
-                build_acc = [0.0]
-                step_total = 0.0
-                if measuring:
-                    stream = self._timed_iter(stream, build_acc)
+                fetch.timed = measuring
+                fetch_ns = step_ns = 0
                 rebuild = None
                 if seam and effective > 0:
                     def rebuild(consumed, _e=epoch, _s=step_in_epoch):
                         return (b.astuple() for b in self.batcher.epoch(
                             _e, start_step=_s + consumed))
                 flagged = 0
-                for payload in prefetch_iter(
-                        stream, effective, transfer=transfer,
-                        hang_timeout=self.prefetch_timeout,
-                        rebuild=rebuild):
-                    t_step = time.perf_counter()
-                    self.state, loss, aux = self.backend.step(self.state,
-                                                              payload)
-                    losses.append(loss)
-                    auxes.append(aux)
-                    self.global_step += 1
-                    step_in_epoch += 1
-                    self._position = (epoch, step_in_epoch, losses, auxes)
-                    dt_step = time.perf_counter() - t_step
-                    step_total += dt_step
-                    if self.straggler.flag_step(dt_step):
-                        flagged += 1
-                    if self._guards_on:
-                        self._check_divergence(loss)
-                    if faults.maybe_fail("sigterm.at_step",
-                                         index=self.global_step):
-                        _signal.raise_signal(_signal.SIGTERM)
-                    self._fire("on_step", {"epoch": epoch,
-                                           "step_in_epoch": step_in_epoch,
-                                           "global_step": self.global_step,
-                                           "loss": loss, "aux": aux})
-                    if self.world > 1 and self.backend.any_rank(self._stop) \
-                            and not self._stop:
-                        self.request_stop(reason="stop requested on "
-                                                 "another rank")
-                    if self._stop:
-                        break
+                payloads = prefetch_iter(
+                    stream, effective, transfer=transfer,
+                    hang_timeout=self.prefetch_timeout, rebuild=rebuild)
+                if epoch_end is not None:
+                    epoch_end.__exit__(None, None, None)
+                    epoch_end = None
+                while True:
+                    # one iteration a step; the fetch that finds the
+                    # stream's end is an iteration of no step
+                    with trace.step_span("engine.iter", epoch,
+                                         step_in_epoch) as it_span:
+                        with fetch:
+                            payload = next(payloads, _END)
+                        if payload is _END:
+                            for sp in (it_span, fetch.span):
+                                if sp is not None:
+                                    sp.step = None
+                            break
+                        fetch_ns += fetch.ns
+                        with timed_step:
+                            self.state, loss, aux = self.backend.step(
+                                self.state, payload)
+                        losses.append(loss)
+                        auxes.append(aux)
+                        self.global_step += 1
+                        step_in_epoch += 1
+                        self._position = (epoch, step_in_epoch, losses,
+                                          auxes)
+                        step_ns += timed_step.ns
+                        if self.straggler.flag_step(timed_step.ns / 1e9):
+                            flagged += 1
+                        if self._guards_on:
+                            self._check_divergence(loss)
+                        if faults.maybe_fail("sigterm.at_step",
+                                             index=self.global_step):
+                            _signal.raise_signal(_signal.SIGTERM)
+                        with trace.span("engine.hooks"):
+                            self._fire("on_step", {
+                                "epoch": epoch,
+                                "step_in_epoch": step_in_epoch,
+                                "global_step": self.global_step,
+                                "loss": loss, "aux": aux})
+                        if self.world > 1 \
+                                and self.backend.any_rank(self._stop) \
+                                and not self._stop:
+                            self.request_stop(reason="stop requested on "
+                                                     "another rank")
+                        if self._stop:
+                            break
+                payloads.close()        # stops a prefetch producer now
                 if self._stop:
                     self.preempted = True
                     if not self._skip_stop_checkpoint:
                         self.save_checkpoint(blocking=True)
                     break
+                epoch_end = trace.span("engine.epoch_end", step=None)
+                epoch_end.__enter__()
                 rec = self._epoch_record(epoch, losses, auxes, t0, flagged)
                 if self.prefetch_auto:
                     rec["prefetch_depth"] = effective
-                    if measuring and step_total > 0:
-                        self._auto_ratio = build_acc[0] / step_total
+                    if measuring and step_ns > 0:
+                        self._auto_ratio = fetch_ns / step_ns
                         self._auto_depth = self._auto_prefetch_depth(
                             self._auto_ratio)
                         rec["host_build_over_step"] = self._auto_ratio
+                if trace.on():
+                    rec["trace"] = trace.summary(trace.spans(since))
                 self.history.append(rec)
                 self._position = (epoch + 1, 0, [], [])
                 losses, auxes = [], []
@@ -876,6 +887,8 @@ class Engine:
             raise
         finally:
             try:
+                if epoch_end is not None:
+                    epoch_end.__exit__(None, None, None)
                 self._fire("on_fit_end")
             finally:
                 if self.checkpoint is not None:

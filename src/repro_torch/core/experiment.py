@@ -37,6 +37,7 @@ from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.generators import make_dataset
 from repro_torch.graph.partition import partition_graph
 from repro_torch.nn.optim import Optimizer, adamw, sgd
+from repro_torch.runtime import trace
 
 _NORMS = ("eq1", "eq9", "eq10", "eq11")
 _PARTITION_METHODS = ("metis", "cluster", "random")
@@ -692,9 +693,15 @@ def build_experiment(spec: ExperimentSpec, *,
     cuda:$LOCAL_RANK (one card per rank), an explicit "cuda:N" is used
     as given (several ranks may share a card), and every rank builds
     the same graph, partition and batch stream."""
-    from repro_torch.device import rank_device, resolve_device
+    from repro_torch.device import resolve_device
     validate(spec)
     resolve_device(device)            # fail before building anything
+    with trace.setup_span("setup.build", step=None):
+        return _build_experiment(spec, graph, group, device, extra_hooks)
+
+
+def _build_experiment(spec, graph, group, device, extra_hooks) -> Experiment:
+    from repro_torch.device import rank_device
     if group is None:
         group = build_process_group(spec)
     if group is not None:
@@ -717,17 +724,19 @@ def build_experiment(spec: ExperimentSpec, *,
     else:
         # SAINT samplers draw i.i.d. subgraphs — no partition to build
         parts, stats = None, None
-    batcher = build_batcher(spec, graph, parts)
+    with trace.setup_span("setup.batcher"):
+        batcher = build_batcher(spec, graph, parts)
     cfg = build_gcn_config(spec, graph)
     opt = build_optimizer(spec)
-    if group is not None:
-        backend = DataParallelBackend(
-            cfg, opt, group, device=device,
-            compression=spec.execution.compression,
-            microbatches=spec.execution.microbatches,
-            compression_group_size=spec.execution.compression_group_size)
-    else:
-        backend = SingleDeviceBackend(cfg, opt, device=device)
+    with trace.setup_span("setup.backend"):
+        if group is not None:
+            backend = DataParallelBackend(
+                cfg, opt, group, device=device,
+                compression=spec.execution.compression,
+                microbatches=spec.execution.microbatches,
+                compression_group_size=spec.execution.compression_group_size)
+        else:
+            backend = SingleDeviceBackend(cfg, opt, device=device)
     checkpoint = None
     if spec.run.checkpoint_dir:
         from repro_torch.runtime.checkpoint import CheckpointManager

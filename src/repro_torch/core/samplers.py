@@ -58,6 +58,7 @@ from repro_torch.core.batching import (ClusterBatch, _round_up,
                                        normalized_subgraph_csr,
                                        subgraph_payload)
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.runtime import trace
 
 Array = np.ndarray
 
@@ -172,10 +173,15 @@ class _SaintSampler:
         extraction + tiling that dominates batch cost."""
         rng = np.random.default_rng((self.seed, epoch_idx))
         for step in range(self.steps_per_epoch()):
-            draw = self.draw(rng)
             if step < start_step:
+                self.draw(rng)
                 continue
-            yield self._payload(*draw)
+            with trace.step_span("batch.build", epoch_idx, step):
+                with trace.span("batch.nodes"):
+                    nodes, weights = self.draw(rng)
+                trace.count("batch.nodes_real", len(nodes))
+                payload = self._payload(nodes, weights)
+            yield payload
 
     def sample_csrs(self, n: int) -> List[Tuple[Array, Array, Array]]:
         """Normalized batch CSRs of the first n batches of epoch 0 (the

@@ -22,13 +22,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import pathlib
-import time
 import warnings
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
 from repro_torch.graph.csr import CSRGraph, edge_cut
+from repro_torch.runtime import trace
 
 # Bump whenever metis_like_partition / random_partition can return a
 # different assignment for the same (graph, num_parts, method, seed) —
@@ -435,8 +435,16 @@ def partition_graph(graph: CSRGraph, num_parts: int, method: str = "metis",
     reports partitioning dominating wall clock on Reddit-scale graphs.
     Cache hits recompute the cheap quality stats (O(E)) and set
     stats.cached=True; unwritable cache dirs degrade to a warning,
-    never a failure."""
-    t0 = time.perf_counter()
+    never a failure. stats.seconds is the `setup.partition` span's."""
+    with trace.setup_span("setup.partition") as sp:
+        parts, stats = _partition_graph(graph, num_parts, method, seed,
+                                        cache, kw)
+        sp.count("partition.cached", int(bool(stats.cached)))
+    stats.seconds = sp.seconds
+    return parts, stats
+
+
+def _partition_graph(graph, num_parts, method, seed, cache, kw):
     cache_dir: Optional[pathlib.Path] = None
     cache_path: Optional[pathlib.Path] = None
     fingerprint: Optional[str] = None
@@ -453,7 +461,7 @@ def partition_graph(graph: CSRGraph, num_parts: int, method: str = "metis",
                     f"corrupt partition cache entry {cache_path}: "
                     f"{len(parts)} assignments for a "
                     f"{graph.num_nodes}-node graph — delete the file")
-            return parts, _partition_stats(graph, parts, num_parts, t0,
+            return parts, _partition_stats(graph, parts, num_parts,
                                            cached=True,
                                            fingerprint=fingerprint)
     if method == "random":
@@ -472,13 +480,13 @@ def partition_graph(graph: CSRGraph, num_parts: int, method: str = "metis",
             warnings.warn(f"partition cache write to {cache_path} "
                           f"failed ({e}) — continuing uncached",
                           stacklevel=2)
-    return parts, _partition_stats(graph, parts, num_parts, t0,
+    return parts, _partition_stats(graph, parts, num_parts,
                                    cached=False if cache else None,
                                    fingerprint=fingerprint)
 
 
 def _partition_stats(graph: CSRGraph, parts: np.ndarray, num_parts: int,
-                     t0: float, cached: Optional[bool],
+                     cached: Optional[bool],
                      fingerprint: Optional[str]) -> PartitionStats:
     cut = edge_cut(graph, parts)
     sizes = np.bincount(parts, minlength=num_parts)
@@ -488,5 +496,5 @@ def _partition_stats(graph: CSRGraph, parts: np.ndarray, num_parts: int,
         within_fraction=1.0 - cut / ne, max_part=int(sizes.max()),
         min_part=int(sizes.min()),
         imbalance=float(sizes.max() / max(1.0, graph.num_nodes / num_parts)),
-        seconds=time.perf_counter() - t0, cached=cached,
+        seconds=0.0, cached=cached,
         fingerprint=fingerprint)

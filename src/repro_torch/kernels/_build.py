@@ -22,8 +22,9 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import Dict, List, Sequence
+
+from repro_torch.runtime import trace
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("block_ell_spmm", "block_ell_spmm_fused", "flash_attention",
@@ -39,7 +40,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 class BuildResult:
     name: str
     path: pathlib.Path
-    seconds: float
+    seconds: float    # the `setup.kernels` span of the build it was part
+                      # of (the builds run together); 0 when cached
     log: str          # nvcc's output (ptxas register/spill report), kept
                       # beside the library and read back when cached
     cached: bool      # the library was already built from this source
@@ -86,6 +88,13 @@ def build(names: Sequence[str] = SOURCES) -> List[BuildResult]:
     """Compile every library in `names` that is not built yet — one nvcc
     per source, all started together — and return what each took.
     Raises RuntimeError with nvcc's output when a build fails."""
+    with trace.setup_span("setup.kernels") as sp:
+        results = _build(names)
+    return [r if r.cached else dataclasses.replace(r, seconds=sp.seconds)
+            for r in results]
+
+
+def _build(names: Sequence[str]) -> List[BuildResult]:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     results: List[BuildResult] = []
@@ -102,12 +111,11 @@ def build(names: Sequence[str] = SOURCES) -> List[BuildResult]:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running.append((name, path, pathlib.Path(tmp), proc,
-                        time.perf_counter()))
+        trace.count("kernels.built")
+        running.append((name, path, pathlib.Path(tmp), proc))
     failures = []
-    for name, path, tmp, proc, t0 in running:
+    for name, path, tmp, proc in running:
         log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failures.append(f"nvcc failed for {name}.cu "
@@ -116,7 +124,7 @@ def build(names: Sequence[str] = SOURCES) -> List[BuildResult]:
         _log_path(tmp).write_text(log)
         _log_path(tmp).replace(_log_path(path))
         tmp.replace(path)
-        results.append(BuildResult(name, path, seconds, log, False))
+        results.append(BuildResult(name, path, 0.0, log, False))
     if failures:
         raise RuntimeError("\n".join(failures))
     return results
@@ -127,9 +135,11 @@ def load(name: str) -> ctypes.CDLL:
     needed. The caller declares argtypes/restype."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
+        with trace.setup_span("setup.kernels"):
+            path = library_path(name)
+            if not path.exists():
+                _build([name])
+            lib = ctypes.CDLL(str(path))
+            trace.count("kernels.loaded")
         _LOADED[name] = lib
     return lib
