@@ -32,10 +32,20 @@ this script. Phases, each of which must pass (no failure is caught):
    then that bmm for the fused product) — timed only, the port never
    calls them — and print the kernel's factor against it, its share of
    the bound and its launch plan (tile width, splits, copy width).
+   `scatter_tiles` (the block-ELL tiles of a batch's compact adjacency,
+   `BlockEllCoords.to("cuda")`) at a ppi_sota and a reddit batch's
+   shape (12 x 12 and 27 x 27 tiles of 128, about 27,500 and 15,200
+   nonzeros) must equal the tiles the host builds from the same CSR
+   bit for bit, in one launch; each prints the kernel's ms against its
+   plain version (the host's numpy scatter), its bound (the zero fill
+   and the scattered words) and torch's indexed assignment, and the
+   blocking copy of the host tiles it replaces beside the packed
+   buffer's.
 3. Train ppi_sota (5 layers, 2048 wide, block-ELL batches, fused
    layers) for 2 epochs through `repro_torch.launch.run_experiment.main`
    — the main path: 5 fused launches and 5 block-ELL launches (the
-   backward on the transposed tiles) per step, a finite loss that falls
+   backward on the transposed tiles) per step, one scatter launch per
+   step (the batch's tiles written on the card), a finite loss that falls
    from epoch 1 to 2. Then where a step's time goes: host batch build
    vs device step (medians), and one step under torch.profiler (device
    time by kernel, idle share).
@@ -809,6 +819,123 @@ def phase_fused(results: dict) -> dict:
     return train_rows[FUSED_MAIN]
 
 
+# (row blocks of 128, real rows, nonzeros drawn): the training batches
+# of ppi_sota (cap 1536) and reddit (cap 3456)
+SCATTER_SHAPES = {"ppi": (12, 1140, 27_540), "reddit": (27, 3104, 15_200)}
+ADJ_FIELDS = ("blocks", "block_cols", "blocks_t", "block_cols_t", "row_k",
+              "row_k_t")
+
+
+def _batch_coords(nrb: int, n: int, nnz: int, seed: int):
+    """A batch-shaped adjacency at K = nrb (k_slots "cap"): its compact
+    form and the BlockEllAdj the host builds from the same CSR."""
+    import numpy as np
+    from repro_torch.kernels.ops import (block_ell_adj_from_csr,
+                                         block_ell_coords_from_csr)
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, n, nnz).astype(np.int64) * n
+                    + rng.integers(0, n, nnz))
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(key // n, minlength=n), out=indptr[1:])
+    indices = (key % n).astype(np.int32)
+    data = (rng.random(len(key)) + 0.01).astype(np.float32)
+    cap = nrb * 128
+    kw = dict(n_cols=cap, block=128, n_rows=cap, k_slots=nrb, k_slots_t=nrb)
+    return (block_ell_coords_from_csr(indptr, indices, data, **kw),
+            block_ell_adj_from_csr(indptr, indices, data,
+                                   assume_unique=True, **kw))
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median wall ms of fn() with the device drained after each call."""
+    import numpy as np
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _scatter_case(results: dict, name: str, seed: int) -> dict:
+    """`BlockEllCoords.to("cuda")` at one batch shape: one launch, the
+    host's tiles bit for bit; the kernel (zero fill and launch) timed
+    against its plain version, its bound and torch's indexed
+    assignment, and the packed buffer's copy against the host tiles'.
+    Appends its row to results["scatter_cases"]."""
+    import torch
+    from repro_torch.kernels import block_spmm
+
+    nrb, n, nnz = SCATTER_SHAPES[name]
+    coords, want = _batch_coords(nrb, n, nnz, seed)
+    before = block_spmm.LAUNCHES_SCATTER
+    got = coords.to("cuda")
+    torch.cuda.synchronize()
+    launched = block_spmm.LAUNCHES_SCATTER - before
+    equal = {f: bool(torch.equal(getattr(got, f).cpu(), getattr(want, f)))
+             for f in ADJ_FIELDS}
+    err = max(float((getattr(got, f).cpu() - getattr(want, f)).abs().max())
+              for f in ("blocks", "blocks_t"))
+    dev = coords.sections(coords.packed.cuda())
+    host = coords.sections()
+    v, off, off_t = dev["values"], dev["offsets"], dev["offsets_t"]
+    nt, nt_t = got.blocks.numel(), got.blocks_t.numel()
+
+    def kernel():
+        return block_spmm.scatter_tiles(v, off, off_t, nt, nt_t)
+    off_l, off_tl = off.long(), off_t.long() + nt
+
+    def library():
+        both = torch.zeros(nt + nt_t, dtype=torch.float32, device="cuda")
+        both[off_l] = v
+        both[off_tl] = v
+        return both
+    ms = _time_ms(kernel, 20)
+    # the zero fill writes both arrays; each nonzero reads its value and
+    # two offsets and writes two words
+    nbytes = 4 * (nt + nt_t) + 20 * coords.nnz
+    tile_bytes = 4 * (nt + nt_t)
+    row = dict(
+        case=name, nrb=nrb, K=int(got.blocks.shape[1]), B=128,
+        nnz=coords.nnz, launches=launched, fields_equal=equal,
+        bitwise=all(equal.values()), max_abs_err=err, ms=ms,
+        plain_ms=_host_ms(lambda: block_spmm.scatter_tiles(
+            host["values"], host["offsets"], host["offsets_t"], nt, nt_t),
+            5),
+        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+        library_ms=_time_ms(library, 20),
+        device_ms=_device_ms(kernel), library_device_ms=_device_ms(library),
+        packed_bytes=coords.packed.numel() * 4, tile_bytes=tile_bytes,
+        packed_copy_ms=_host_ms(lambda: coords.packed.to("cuda"), 5),
+        tiles_copy_ms=_host_ms(lambda: (want.blocks.to("cuda"),
+                                        want.blocks_t.to("cuda")), 5))
+    row["bound_share"] = row["bound_ms"] / ms
+    results["scatter_cases"].append(row)
+    print(f"[scatter] {name}: nrb {nrb} K {row['K']} nnz {coords.nnz}  "
+          f"bitwise {row['bitwise']}  launches {launched}  kernel "
+          f"{ms:.4f} ms (device {row['device_ms']})  plain {row['plain_ms']:.4f}"
+          f" ms  bound {row['bound_ms']:.4f} ms  indexed assignment "
+          f"{row['library_ms']:.4f} ms; copy {row['packed_bytes']} B "
+          f"{row['packed_copy_ms']:.4f} ms against the host tiles' "
+          f"{tile_bytes} B {row['tiles_copy_ms']:.4f} ms")
+    if not row["bitwise"] or launched != 1:
+        raise AssertionError(f"block_ell_scatter: not the host's tiles bit "
+                             f"for bit, or not one launch: {row}")
+    return row
+
+
+def phase_scatter(results: dict) -> dict:
+    """The block-ELL scatter at a ppi_sota and a reddit batch's shape;
+    returns both rows by name."""
+    results["scatter_cases"] = []
+    return {name: _scatter_case(results, name, seed=n)
+            for n, name in enumerate(SCATTER_SHAPES)}
+
+
 def _train_argv(work: pathlib.Path, name: str, sets,
                 preset: str = "ppi_sota") -> list:
     argv = ["--preset", preset, "--results-dir", str(work / name)]
@@ -840,10 +967,12 @@ def phase_train(results: dict, work: pathlib.Path, preset: str = "ppi_sota",
     # --- the main path: every launch count starts at 0 here -------------
     block_spmm.LAUNCHES = 0
     block_spmm.LAUNCHES_FUSED = 0
+    block_spmm.LAUNCHES_SCATTER = 0
     with _prepared_graph(spec, graph):
         rc = run_experiment.main(argv)
     launches = {"block_ell_spmm": block_spmm.LAUNCHES,
-                "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED}
+                "block_ell_spmm_fused": block_spmm.LAUNCHES_FUSED,
+                "block_ell_scatter": block_spmm.LAUNCHES_SCATTER}
     # ---------------------------------------------------------------------
     wall = time.perf_counter() - t0
     memory = _peak_memory(mem0)
@@ -859,7 +988,8 @@ def phase_train(results: dict, work: pathlib.Path, preset: str = "ppi_sota",
           f"{metrics['final']['score']:.4f}")
     print(f"[{tag}] launches: fused {launches['block_ell_spmm_fused']}, "
           f"block_ell_spmm {launches['block_ell_spmm']} (expected {layers} "
-          f"x {steps} each)")
+          f"x {steps} each), block_ell_scatter "
+          f"{launches['block_ell_scatter']} (expected {steps})")
     results[key] = dict(steps=steps, wall_s=wall, launches=launches,
                         history=metrics["history"],
                         epoch_s=_epoch_seconds(metrics["history"]),
@@ -869,10 +999,12 @@ def phase_train(results: dict, work: pathlib.Path, preset: str = "ppi_sota",
           f"({memory['above_start_gib']:.3f} GiB above the start)")
     if steps != 2 * per_epoch \
             or launches["block_ell_spmm_fused"] != layers * steps \
-            or launches["block_ell_spmm"] != layers * steps:
+            or launches["block_ell_spmm"] != layers * steps \
+            or launches["block_ell_scatter"] != steps:
         raise AssertionError(f"expected {2 * per_epoch} steps with "
-                             f"{layers} launches of each kernel per step: "
-                             f"{steps} steps, {launches}")
+                             f"{layers} launches of each product kernel "
+                             f"and one scatter per step: {steps} steps, "
+                             f"{launches}")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[1] < losses[0]:
         raise AssertionError(f"loss not finite or not falling: {losses}")
@@ -899,7 +1031,7 @@ def _occupancy(batches) -> dict:
     import numpy as np
     rk, rkt, fill = [], [], []
     for b in batches:
-        adj = b.adj
+        adj = b.adj.to("cpu")          # the tiles the compact payload makes
         B = adj.blocks.shape[-1]
         live = adj.row_k.numpy()
         rk.append(float(live.mean()))
@@ -3749,9 +3881,10 @@ def _recorded_partitions(store: list):
 
 
 def _batch_shape(exp) -> tuple:
-    """(nrb, K) of the first block-ELL batch of an experiment's epoch 0."""
+    """(nrb, K) of the first block-ELL batch of an experiment's epoch 0
+    (the tile shape of its compact adjacency)."""
     adj = next(iter(exp.batcher.epoch(0))).adj
-    return tuple(int(n) for n in adj.blocks.shape[:2])
+    return tuple(int(n) for n in adj.shape[:2])
 
 
 def _scale_kernels(results: dict, name: str, nrb: int, K: int,
@@ -4103,6 +4236,7 @@ def _run(run_t0: float, work: pathlib.Path, procs: list) -> int:
     t = functools.partial(_timed, phase_s)
     spmm_rows = t("2 spmm kernels", phase_kernels, results)
     fused_row = t("2 fused kernels", phase_fused, results)
+    scatter_rows = t("2 scatter kernel", phase_scatter, results)
     trained = t("3 train", phase_train, results, work)
     t("3 step profile", lambda: phase_step_profile(
         results, _step_parts(TRAIN_SETS)))
@@ -4160,6 +4294,11 @@ def _run(run_t0: float, work: pathlib.Path, procs: list) -> int:
 
     spmm_paths = by_path("block_ell_spmm")
     fused_paths = by_path("block_ell_spmm_fused")
+    # the paths that count the scatter: phase 3's and phase 18's training
+    scatter_paths = {"train": trained["launches"]["block_ell_scatter"],
+                     **{s: n["block_ell_scatter"]
+                        for s, n in scale_launches.items()
+                        if "block_ell_scatter" in n}}
     kernels = [{
         "name": "block_ell_spmm",
         "route": "cuda",
@@ -4185,6 +4324,22 @@ def _run(run_t0: float, work: pathlib.Path, procs: list) -> int:
         "kernel_flops": fused_row["kernel_flops"],
         "shape": {k: fused_row[k] for k in shape_keys if k in fused_row},
         "scale_shapes": scale_rows("block_ell_spmm_fused"),
+    }, {
+        "name": "block_ell_scatter",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_ell_scatter.cu",
+        # no TPU kernel: the reference builds these tiles on the host
+        "replaces": "src/repro/kernels/ops.py:475",
+        "launches": sum(scatter_paths.values()),
+        "launches_by_path": scatter_paths,
+        **numbers(scatter_rows["reddit"]),
+        "bitwise": scatter_rows["reddit"]["bitwise"],
+        "shape": {k: scatter_rows["reddit"][k]
+                  for k in ("nrb", "K", "B", "nnz")},
+        "ppi": dict(numbers(scatter_rows["ppi"]),
+                    bitwise=scatter_rows["ppi"]["bitwise"],
+                    shape={k: scatter_rows["ppi"][k]
+                           for k in ("nrb", "K", "B", "nnz")}),
     }, {
         "name": "flash_attention",
         "route": "cuda",

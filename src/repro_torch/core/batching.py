@@ -12,9 +12,12 @@ Pipeline:
 
 Everything here is host numpy, copied from the reference so payloads
 are bit-identical per (seed, epoch) (tests/test_torch_batching.py). A
-sparse payload's adjacency is a `BlockEllAdj` whose leaves are CPU
-tensors over the builder's numpy buffers; `batch_to_device` moves a
-payload to the device the step runs on. The GraphSAINT samplers
+sparse payload's adjacency is a `BlockEllCoords`: the nonzeros of Â
+with their offsets into the block-ELL tiles of Â and Âᵀ, one packed
+CPU tensor. `batch_to_device` moves a payload to the device the step
+runs on; there the adjacency becomes the `BlockEllAdj` the reference's
+payload holds, its tiles written on that device (a CUDA kernel on a
+card). The GraphSAINT samplers
 (`core/samplers.py`) build their payloads through `subgraph_payload`
 too. `utilization_stats` and `label_entropy_per_cluster` measure a
 partition as the paper's §3.1 and Fig. 2 do (host numpy, the
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph, group_members
 from repro_torch.graph.normalization import normalize_csr, normalize_dense
-from repro_torch.kernels.block_spmm import BlockEllAdj
+from repro_torch.kernels.block_spmm import BlockEllAdj, BlockEllCoords
 from repro_torch.runtime import trace
 
 Array = np.ndarray
@@ -45,9 +48,10 @@ class ClusterBatch:
 
     adj:        (cap, cap) float32 — normalized adjacency of the q-cluster
                 union subgraph (zero rows/cols in padding) — OR, with
-                `ClusterBatcher(sparse_adj=True)`, a kernels.BlockEllAdj
-                (block-ELL tiles + host-built transpose, CPU tensors)
-                whose leaves are equally fixed-shape.
+                `ClusterBatcher(sparse_adj=True)`, a
+                kernels.BlockEllCoords: the block-ELL Â and Âᵀ as
+                nonzeros and tile offsets, whose `.to(device)` is a
+                fixed-shape BlockEllAdj.
     features:   (cap, F) float32
     labels:     (cap,) int32 or (cap, C) float32
     node_mask:  (cap,) bool — real node?
@@ -137,17 +141,17 @@ def subgraph_payload(graph: CSRGraph, nodes: Array, *, node_cap: int,
                      sparse_adj: bool = False, block_size: int = 128,
                      k_slots: Union[int, str] = "cap", k_plan=None,
                      loss_weights: Optional[Array] = None,
-                     precompute_ax: bool = False,
-                     tile_pool=None) -> "ClusterBatch":
+                     precompute_ax: bool = False) -> "ClusterBatch":
     """Induced subgraph on `nodes` → fixed-shape ClusterBatch payload.
 
     The one place batch payloads are built — ClusterBatcher and the
     GraphSAINT-style samplers all call this, so every sampler emits the
     exact contract the Engine/backends consume: a (cap, cap) dense
     normalized adjacency (paper §6.2 per-batch re-normalization) or a
-    BlockEllAdj pytree (sparse_adj=True, never densified; K follows
-    k_slots/k_plan exactly as documented on ClusterBatcher), padded
-    features/labels, node_mask, loss_mask and num_real.
+    BlockEllCoords (sparse_adj=True, never densified, its tiles written
+    where it is moved to; K follows k_slots/k_plan exactly as
+    documented on ClusterBatcher), padded features/labels, node_mask,
+    loss_mask and num_real.
 
     loss_weights (len(nodes),) scales the loss mask per REAL node —
     SAINT samplers pass their unbiased-estimator normalization
@@ -159,12 +163,6 @@ def subgraph_payload(graph: CSRGraph, nodes: Array, *, node_cap: int,
     its propagation (GCNConfig.precompute_ax). One host spmm per batch
     instead of one device spmm per step per epoch, and under mixed
     precision the first aggregation happens in full fp32 numpy.
-
-    tile_pool (kernels.ops.TileBufferPool, sparse path only) recycles
-    the big zero-filled tile buffers across batches instead of
-    allocating fresh ones — safe whenever the consumer is done with a
-    payload before the pool cycles around (the DP stacker copies what
-    it retains longer).
     """
     if k_slots == "auto" and k_plan is None:
         raise ValueError("k_slots='auto' needs a pre-computed k_plan "
@@ -176,42 +174,35 @@ def subgraph_payload(graph: CSRGraph, nodes: Array, *, node_cap: int,
     cap = node_cap
 
     if sparse_adj:
-        # normalize the batch CSR directly (paper §6.2) and tile it —
-        # the dense (cap, cap) block is never materialized. K follows
-        # the k_slots policy: "cap" pins the lossless worst case
-        # cap/B; "auto" picks the smallest pre-planned bucket that
-        # holds this batch losslessly (repro_torch.core.kslots); an int is
-        # used as-is (builders raise if it would drop tiles).
-        from repro_torch.kernels.ops import block_ell_adj_from_csr
+        # normalize the batch CSR directly (paper §6.2) and place its
+        # nonzeros in the tiles — the dense (cap, cap) block is never
+        # materialized, and the tiles are written only on the device.
+        # K follows the k_slots policy: "cap" pins the lossless worst
+        # case cap/B; "auto" picks the smallest pre-planned bucket that
+        # holds this batch losslessly (repro_torch.core.kslots); an int
+        # is used as-is (the builder raises if it would drop tiles).
+        from repro_torch.kernels.ops import block_ell_coords_from_csr
         with trace.span("batch.normalize"):
             ip, ix, dt = normalize_csr(sub.indptr, sub.indices, sub.data,
                                        norm, diag_lambda)
             trace.count("batch.adj_nnz", len(ix))
+        if k_slots == "auto":
+            # bucket picked inside the builder from the occupancy it
+            # computes anyway — no extra O(nnz) pass per batch
+            k_kw = dict(k_chooser=lambda nf, nt: k_plan.bucket_for(
+                max(nf, nt, 1)))
+        else:
+            k = cap // block_size if k_slots == "cap" else int(k_slots)
+            k_kw = dict(k_slots=k, k_slots_t=k)
         with trace.span("batch.tiles") as tiles:
-            if k_slots == "auto":
-                # bucket picked inside the builder from the occupancy it
-                # computes anyway — no extra O(nnz) pass per batch
-                chooser = lambda nf, nt: \
-                    k_plan.bucket_for(max(nf, nt, 1))  # noqa: E731
-                adj = block_ell_adj_from_csr(ip, ix, dt, n_cols=cap,
-                                             block=block_size,
-                                             n_rows=cap,
-                                             assume_unique=True,
-                                             k_chooser=chooser,
-                                             pool=tile_pool)
-            else:
-                k = cap // block_size if k_slots == "cap" else int(k_slots)
-                adj = block_ell_adj_from_csr(ip, ix, dt, n_cols=cap,
-                                             block=block_size,
-                                             k_slots=k, k_slots_t=k,
-                                             n_rows=cap,
-                                             assume_unique=True,
-                                             pool=tile_pool)
+            adj = block_ell_coords_from_csr(ip, ix, dt, n_cols=cap,
+                                            block=block_size, n_rows=cap,
+                                            **k_kw)
             if tiles:
                 # row blocks × K of Â plus the same of Âᵀ: the tiles of
-                # block² elements each that the copy ships
-                tiles.count("batch.tile_slots",
-                            adj.block_cols.numel() + adj.block_cols_t.numel())
+                # block² elements each that the kernels read
+                nrb, K, ncb, Kt, _ = adj.shape
+                tiles.count("batch.tile_slots", nrb * K + ncb * Kt)
                 tiles.count("batch.block", block_size)
     else:
         with trace.span("batch.normalize"):
@@ -271,9 +262,10 @@ class ClusterBatcher:
     diag_lambda: λ of Eq. 11.
     precompute_ax: paper §6.2 — first layer uses A'X precomputed per batch
       (exact 1-hop aggregation; saves one propagation in the model).
-    sparse_adj: emit BlockEllAdj batches (block-ELL tiles built straight
-      from the normalized batch CSR, never densified) instead of the
-      dense (cap, cap) block — the block-ELL CUDA kernel path.
+    sparse_adj: emit BlockEllCoords batches (the normalized batch CSR's
+      nonzeros with their block-ELL tile offsets, never densified, the
+      tiles written on the device) instead of the dense (cap, cap)
+      block — the block-ELL CUDA kernel path.
     block_size: tile edge B of the block-ELL format (node_cap must be a
       multiple of it; the default matches pad_multiple=128).
     k_slots: ELL slot-count policy for the sparse path:
@@ -290,12 +282,9 @@ class ClusterBatcher:
       For async host-side batch construction overlapping the device step
       see execution.prefetch (repro_torch.core.prefetch) — batch order is
       identical either way.
-    reuse_tile_buffers: sparse path only — recycle the host-side block
-      tile buffers (2 × K·B² floats per batch) through a small ring
-      (kernels.ops.TileBufferPool) instead of zero-filling fresh numpy
-      arrays every batch; values are identical, the consumer just must
-      not hold a payload past the pool depth (the Engine checks the
-      depth against the batches it keeps in flight).
+    reuse_tile_buffers: accepted for the reference's config, and without
+      effect: a sparse batch ships coordinates (BlockEllCoords), so it
+      has no host tile buffers to recycle.
     """
     graph: CSRGraph
     parts: Array
@@ -340,10 +329,6 @@ class ClusterBatcher:
         if self.sparse_adj and self.k_slots == "auto":
             from repro_torch.core.kslots import plan_k_buckets
             self.k_plan = plan_k_buckets(self)
-        self._tile_pool = None
-        if self.sparse_adj and self.reuse_tile_buffers:
-            from repro_torch.kernels.ops import TileBufferPool
-            self._tile_pool = TileBufferPool()
 
     # ------------------------------------------------------------------
     def _batch_nodes(self, cluster_ids: Sequence[int],
@@ -404,16 +389,13 @@ class ClusterBatcher:
     def batch_from_clusters(self, cluster_ids: Sequence[int], *,
                             rng_ctx: Tuple[int, int] = (0, 0)
                             ) -> ClusterBatch:
-        """One-off payload build for the given clusters. Deliberately
-        POOL-FREE: this is the public entry point reachable from any
-        thread (stats probes, benchmarks, planning) while `epoch()`'s
-        stream — the only pooled path — may be running on a prefetch
-        producer thread, and TileBufferPool is single-threaded."""
-        return self._build(cluster_ids, rng_ctx=rng_ctx, tile_pool=None)
+        """One-off payload build for the given clusters (stats probes,
+        benchmarks, planning); safe beside a running `epoch()` stream,
+        as builds share no buffers."""
+        return self._build(cluster_ids, rng_ctx=rng_ctx)
 
     def _build(self, cluster_ids: Sequence[int], *,
-               rng_ctx: Tuple[int, int],
-               tile_pool) -> ClusterBatch:
+               rng_ctx: Tuple[int, int]) -> ClusterBatch:
         # rng_ctx is the (epoch, step) the batch serves: its step id
         with trace.span("batch.build", step=rng_ctx):
             with trace.span("batch.nodes"):
@@ -423,8 +405,7 @@ class ClusterBatcher:
                 self.graph, nodes, node_cap=self.node_cap, norm=self.norm,
                 diag_lambda=self.diag_lambda, sparse_adj=self.sparse_adj,
                 block_size=self.block_size, k_slots=self.k_slots,
-                k_plan=self.k_plan, precompute_ax=self.precompute_ax,
-                tile_pool=tile_pool)
+                k_plan=self.k_plan, precompute_ax=self.precompute_ax)
 
     # ------------------------------------------------------------------
     def epoch(self, epoch_idx: int,
@@ -433,9 +414,7 @@ class ClusterBatcher:
         clusters without replacement (Algorithm 1). When q does not
         divide num_parts the final batch carries the num_parts % q
         trailing clusters (same padded fixed shape — dropping them would
-        silently skip those clusters every epoch). This stream is the
-        ONLY consumer of the batcher's tile pool — one producer thread
-        at a time (prefetch_iter runs at most one).
+        silently skip those clusters every epoch).
 
         start_step=k skips the first k batches WITHOUT building their
         payloads (the epoch permutation is drawn whole, so group
@@ -445,8 +424,7 @@ class ClusterBatcher:
         for step, group in enumerate(self._epoch_groups(epoch_idx)):
             if step < start_step:
                 continue
-            yield self._build(group, rng_ctx=(epoch_idx, step),
-                              tile_pool=self._tile_pool)
+            yield self._build(group, rng_ctx=(epoch_idx, step))
 
     def _epoch_groups(self, epoch_idx: int) -> Iterator[Array]:
         """The epoch's cluster groups — the deterministic (seed, epoch)
@@ -535,31 +513,57 @@ def label_entropy_per_cluster(graph: CSRGraph, parts: Array) -> Array:
 
 def batch_to_device(batch_tuple, device, non_blocking: bool = False):
     """A `ClusterBatch.astuple()` payload (numpy leaves; the adjacency
-    dense numpy or a `BlockEllAdj`) as tensors on `device`; a list of
+    dense numpy or a `BlockEllCoords`) as tensors on `device`, the
+    adjacency a `BlockEllAdj` whose tiles are written there; a list of
     payloads (a data-parallel rank's slice) maps to a list. With
     non_blocking on a CUDA device the host arrays are first copied into
-    pinned memory, so a tile buffer the builder recycles later is never
-    read by a copy still in flight."""
+    pinned memory, so a host buffer reused later is never read by a
+    copy still in flight."""
     dev = torch.device(device)
     with trace.span("batch.copy") as copy:
         out = _to_device(batch_tuple, dev, non_blocking)
         if copy:
+            host = batch_tuple if isinstance(batch_tuple, list) \
+                else [batch_tuple]
             copy.count("copy.bytes", sum(
-                t.numel() * t.element_size()
-                for p in (out if isinstance(out, list) else [out])
-                for t in payload_arrays(p) if t is not None))
+                _nbytes(t) for p in host for t in payload_arrays(p)
+                if t is not None))
             copy.count("copy.pinned", int(non_blocking and dev.type == "cuda"))
+            coords = [a for p in host for a in p
+                      if isinstance(a, BlockEllCoords)]
+            if coords:
+                copy.count("copy.tiles_on_device",
+                           len(coords) if dev.type == "cuda" else 0)
+                copy.count("copy.adj_bytes",
+                           sum(_nbytes(a.packed) for a in coords))
     return out
+
+
+def _nbytes(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return np.asarray(a).nbytes
 
 
 def payload_arrays(batch) -> list:
-    """The arrays of a batch tuple, a BlockEllAdj's tensors (None where
-    it has no row_k) included, in order."""
+    """The host arrays of a batch tuple, an adjacency's tensors (a
+    BlockEllCoords' packed buffer; a BlockEllAdj's tensors, None where
+    it has no row_k) included, in order: what its copy ships."""
     out = []
     for leaf in batch:
-        out.extend(leaf.tensors() if isinstance(leaf, BlockEllAdj)
+        out.extend(leaf.tensors()
+                   if isinstance(leaf, (BlockEllAdj, BlockEllCoords))
                    else [leaf])
     return out
+
+
+def payload_shapes(batch) -> tuple:
+    """The shape signature of a sampler's batch tuple: each leaf's
+    shape, a compact adjacency's tile shape. Payloads of one signature
+    give the step tensors of one shape (the K of a k_slots="auto" bucket
+    included)."""
+    return tuple(leaf.shape if isinstance(leaf, BlockEllCoords)
+                 else np.shape(leaf) for leaf in batch)
 
 
 def _to_device(batch_tuple, dev: torch.device, non_blocking: bool):
@@ -567,7 +571,7 @@ def _to_device(batch_tuple, dev: torch.device, non_blocking: bool):
         return [_to_device(b, dev, non_blocking) for b in batch_tuple]
 
     def move(a):
-        if isinstance(a, BlockEllAdj):
+        if isinstance(a, (BlockEllAdj, BlockEllCoords)):
             return a.to(dev, non_blocking=non_blocking)
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
         if t.device == dev:

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.batching import (Sampler, batch_to_device,
-                                       payload_arrays)
+                                       payload_shapes)
 from repro_torch.core.gcn import GCNConfig, gcn_loss, init_params, micro_f1
 from repro_torch.core.precision import (all_finite, init_scale_state,
                                         policy_from_config, scale_loss,
@@ -58,7 +58,6 @@ from repro_torch.core.precision import (all_finite, init_scale_state,
                                         update_scale_state)
 from repro_torch.core.prefetch import prefetch_iter
 from repro_torch.device import resolve_device
-from repro_torch.kernels.block_spmm import BlockEllAdj
 from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
 from repro_torch.nn.optim import Optimizer, apply_updates
@@ -135,31 +134,21 @@ def make_train_step(cfg: GCNConfig, opt: Optimizer,
     return faults.wrap_step_faults(scaled_step)
 
 
-def _copy_batch(batch):
-    """A deep copy of a host batch tuple (numpy and CPU-tensor leaves)."""
-    def copy(leaf):
-        if isinstance(leaf, BlockEllAdj):
-            return BlockEllAdj(*(None if t is None else t.clone()
-                                 for t in leaf.tensors()), checked=True)
-        return np.copy(leaf)
-    return tuple(copy(leaf) for leaf in batch)
-
-
 def _dp_groups(batches, n: int):
     """Stream fixed-shape batches into groups of exactly n (one slice
-    per rank), grouped by leaf-shape signature so fill-adaptive K
-    buckets (k_slots="auto") never mix inside one step — the port of
+    per rank), grouped by shape signature (`payload_shapes`: an
+    adjacency's tile shape, K included) so fill-adaptive K buckets
+    (k_slots="auto") never mix inside one step — the port of
     `repro.core.engine._dp_groups`. Holds at most n batches per bucket
-    plus each bucket's first n, deep-copied (a builder reusing tile
-    buffers recycles the originals), which wrap around to fill that
-    bucket's short final group."""
+    plus each bucket's first n, which wrap around to fill that bucket's
+    short final group (no builder reuses a batch's buffers, so they are
+    kept as built)."""
     pending, firsts = {}, {}
     for b in batches:
-        key = tuple(None if a is None else tuple(a.shape)
-                    for a in payload_arrays(b))
+        key = payload_shapes(b)
         first = firsts.setdefault(key, [])
         if len(first) < n:
-            first.append(_copy_batch(b))
+            first.append(b)
         group = pending.setdefault(key, [])
         group.append(b)
         if len(group) == n:
@@ -513,32 +502,6 @@ class Engine:
         self.prefetch = 0 if self.prefetch_auto else int(prefetch)
         self._auto_depth: Optional[int] = None
         self._auto_ratio: Optional[float] = None
-        pool = getattr(batcher, "_tile_pool", None)
-        if pool is not None:
-            # TileBufferPool recycles a buffer after `depth` further
-            # same-key requests; each batch makes 2 requests per ring key
-            # (forward + transposed tiles), so the pool holds depth//2
-            # live batches: the prefetch queue plus the in-flight and
-            # just-built ones (one device), or a full _dp_groups group
-            # plus the one being built (data parallel) must fit
-            group = int(getattr(backend, "group_size", 1))
-            depth_bound = (AUTO_PREFETCH_MAX if self.prefetch_auto
-                           else self.prefetch)
-            need = group + 1 if group > 1 else depth_bound + 2
-            live = pool.depth // 2
-            if live < need:
-                raise ValueError(
-                    f"tile-buffer pool depth {pool.depth} holds only "
-                    f"{live} live batches but this run keeps {need} in "
-                    f"flight ("
-                    + (f"data-parallel group of {group} + 1 being built"
-                       if group > 1 else
-                       f"prefetch={depth_bound} queued + 2 in flight")
-                    + ") — recycled buffers would alias live payloads "
-                    f"and silently corrupt training. Deepen the pool "
-                    f"(TileBufferPool(depth={2 * need}) on the sampler), "
-                    f"lower execution.prefetch, or disable "
-                    f"batch.reuse_tile_buffers.")
         self.batcher = batcher
         self.cfg = cfg
         self.backend = backend

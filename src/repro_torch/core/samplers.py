@@ -79,7 +79,7 @@ class _SaintSampler:
       equivalent (N/budget nodes, resp. E/budget edges).
     norm/diag_lambda, node_cap/pad_multiple, sparse_adj/block_size/
       k_slots/precompute_ax/reuse_tile_buffers: payload knobs, exactly
-      as on ClusterBatcher (k_slots
+      as on ClusterBatcher (reuse_tile_buffers without effect; k_slots
       "auto" plans fill-adaptive K buckets from epoch-0 samples via the
       same repro_torch.core.kslots machinery).
     seed: the epoch stream is a pure function of (seed, epoch_idx).
@@ -128,10 +128,6 @@ class _SaintSampler:
         if self.sparse_adj and self.k_slots == "auto":
             from repro_torch.core.kslots import plan_k_buckets
             self.k_plan = plan_k_buckets(self)
-        self._tile_pool = None
-        if self.sparse_adj and self.reuse_tile_buffers:
-            from repro_torch.kernels.ops import TileBufferPool
-            self._tile_pool = TileBufferPool()
 
     # -- subclass hooks -------------------------------------------------
     def _setup(self) -> None:
@@ -161,8 +157,7 @@ class _SaintSampler:
                                 block_size=self.block_size,
                                 k_slots=self.k_slots, k_plan=self.k_plan,
                                 loss_weights=weights,
-                                precompute_ax=self.precompute_ax,
-                                tile_pool=self._tile_pool)
+                                precompute_ax=self.precompute_ax)
 
     def epoch(self, epoch_idx: int, start_step: int = 0):
         """steps_per_epoch() i.i.d. subgraph batches. The stream is a

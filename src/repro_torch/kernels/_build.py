@@ -27,8 +27,8 @@ from typing import Dict, List, Sequence
 from repro_torch.runtime import trace
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("block_ell_spmm", "block_ell_spmm_fused", "flash_attention",
-           "flash_attention_sm90")
+SOURCES = ("block_ell_spmm", "block_ell_spmm_fused", "block_ell_scatter",
+           "flash_attention", "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

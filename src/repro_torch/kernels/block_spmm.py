@@ -9,6 +9,11 @@ Two hand-written Hopper kernels, each with a plain PyTorch version
   * `spmm_fused_block_ell`: y = Â·(XW + 1bᵀ)
     (`csrc/block_ell_spmm_fused.cu`), the port of `_spmm_fused_kernel`.
 
+A third, `scatter_tiles` (`csrc/block_ell_scatter.cu`), writes the tiles
+of a `BlockEllCoords` (a batch's nonzeros with their tile offsets, what
+the host ships) into a zeroed `BlockEllAdj` on the card; on the CPU the
+same scatter is a numpy assignment.
+
 Both run on one fp32 tile mainloop (`csrc/block_tile.cuh`: 128-row
 output tiles, a 4-stage cp.async ring, 8 x 16 register tiles, the
 contraction split so that every shape fills the SMs, fixed-order
@@ -52,6 +57,7 @@ from repro_torch.kernels.ref import spmm_block_ell_ref, spmm_fused_ref
 # it went through a kernel by reading these before and after
 LAUNCHES = 0           # block_ell_spmm (y = Â·X)
 LAUNCHES_FUSED = 0     # block_ell_spmm_fused (y = Â·(XW + b)), one per call
+LAUNCHES_SCATTER = 0   # block_ell_scatter (tiles of a BlockEllCoords)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
@@ -307,6 +313,146 @@ def _check_cols(cols: torch.Tensor, n_blocks: int, what: str) -> None:
     if lo < 0 or hi >= n_blocks:
         raise ValueError(f"{what} out of range [0, {n_blocks}): "
                          f"min {lo}, max {hi}")
+
+
+# the sections of a BlockEllCoords' packed buffer, in order
+_SECTIONS = ("values", "offsets", "offsets_t", "block_cols", "block_cols_t",
+             "row_k", "row_k_t")
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockEllCoords:
+    """A block-ELL Â and Âᵀ as the host ships them: each nonzero once,
+    with where it lands in the tiles of either direction, instead of the
+    tiles themselves (a batch's tiles are mostly zeros).
+
+    packed: one int32 tensor, the sections of `sections()` end to end:
+      values        (nnz,)      fp32 bits, CSR order
+      offsets       (nnz,)      flat offset into blocks (nrb, K, B, B)
+      offsets_t     (nnz,)      flat offset into blocks_t (ncb, Kt, B, B)
+      block_cols    (nrb * K)   as in BlockEllAdj
+      block_cols_t  (ncb * Kt)
+      row_k         (nrb,)
+      row_k_t       (ncb,)
+    nnz: the nonzeros.
+    shape: (nrb, K, ncb, Kt, B), the tile shape it expands to; payloads
+      of one shape stack into one step (`core.engine._dp_groups`).
+
+    `ops.block_ell_coords_from_csr` builds it; `to(device)` returns the
+    `BlockEllAdj` that `ops.block_ell_adj_from_csr` builds from the same
+    CSR, bit for bit. The offsets of distinct coordinates are distinct,
+    so the scatter is exact in any order."""
+    packed: torch.Tensor
+    nnz: int
+    shape: Tuple[int, int, int, int, int]
+
+    def __post_init__(self):
+        nrb, K, ncb, Kt, _ = self.shape
+        want = 3 * self.nnz + nrb * K + ncb * Kt + nrb + ncb
+        if self.packed.dtype != torch.int32 or \
+                tuple(self.packed.shape) != (want,):
+            raise ValueError(f"packed must be int32 ({want},); got "
+                             f"{self.packed.dtype} "
+                             f"{tuple(self.packed.shape)}")
+
+    @staticmethod
+    def allocate(nnz: int, shape) -> "BlockEllCoords":
+        """An unfilled host adjacency of `nnz` nonzeros and tile shape
+        `shape`; the builder writes every section."""
+        nrb, K, ncb, Kt, _ = shape
+        n = 3 * nnz + nrb * K + ncb * Kt + nrb + ncb
+        return BlockEllCoords(torch.empty(n, dtype=torch.int32), int(nnz),
+                              tuple(int(d) for d in shape))
+
+    def sections(self, buf: Optional[torch.Tensor] = None) -> Dict:
+        """Views of `buf` (the packed buffer, or a copy of it on another
+        device) by section name, values as fp32 and the column maps as
+        (nrb, K) and (ncb, Kt)."""
+        buf = self.packed if buf is None else buf
+        nrb, K, ncb, Kt, _ = self.shape
+        sizes = (self.nnz, self.nnz, self.nnz, nrb * K, ncb * Kt, nrb, ncb)
+        out, at = {}, 0
+        for name, n in zip(_SECTIONS, sizes):
+            out[name] = buf[at:at + n]
+            at += n
+        out["values"] = out["values"].view(torch.float32)
+        out["block_cols"] = out["block_cols"].view(nrb, K)
+        out["block_cols_t"] = out["block_cols_t"].view(ncb, Kt)
+        return out
+
+    def tensors(self):
+        """What crosses to the device: the one packed buffer."""
+        return (self.packed,)
+
+    def to(self, device, non_blocking: bool = False) -> BlockEllAdj:
+        """The tiles on `device`: one copy of the packed buffer, then
+        `scatter_tiles` (the CUDA kernel on a card, numpy on the CPU).
+        Nothing waits on the device beyond the copy itself, which is
+        blocking unless `non_blocking`; with non_blocking, the buffer is
+        first copied into pinned memory."""
+        dev = torch.device(device)
+        buf = self.packed
+        if buf.device != dev:
+            if non_blocking and buf.device.type == "cpu" and \
+                    dev.type == "cuda":
+                buf = buf.pin_memory()
+            buf = buf.to(dev, non_blocking=non_blocking)
+        s = self.sections(buf)
+        nrb, K, ncb, Kt, B = self.shape
+        blocks, blocks_t = scatter_tiles(s["values"], s["offsets"],
+                                         s["offsets_t"], nrb * K * B * B,
+                                         ncb * Kt * B * B)
+        # the columns were checked on the host when they were built
+        return BlockEllAdj(blocks.view(nrb, K, B, B), s["block_cols"],
+                           blocks_t.view(ncb, Kt, B, B), s["block_cols_t"],
+                           s["row_k"], s["row_k_t"], checked=True)
+
+
+@functools.cache
+def _scatter_fns():
+    lib = _build.load("block_ell_scatter")
+    fn = lib.block_ell_scatter_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    err = lib.block_ell_scatter_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def scatter_tiles(values: torch.Tensor, offsets: torch.Tensor,
+                  offsets_t: torch.Tensor, n: int, n_t: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two zeroed fp32 arrays of n and n_t elements with values[i] at
+    offsets[i] in the first and at offsets_t[i] in the second (int32
+    offsets, each distinct within its array and already in range). On a
+    CUDA tensor: one `torch.zeros` and one launch on the current stream,
+    no sync; on the CPU: numpy."""
+    global LAUNCHES_SCATTER
+    dev = values.device
+    if dev.type == "cpu":
+        v = values.numpy()
+        tiles, tiles_t = np.zeros(n, np.float32), np.zeros(n_t, np.float32)
+        tiles[offsets.numpy()] = v
+        tiles_t[offsets_t.numpy()] = v
+        return torch.from_numpy(tiles), torch.from_numpy(tiles_t)
+    if dev.type != "cuda":
+        raise ValueError(f"no block-ELL scatter for device {dev}")
+    both = torch.zeros(n + n_t, dtype=torch.float32, device=dev)
+    tiles, tiles_t = both[:n], both[n:]
+    nnz = values.numel()
+    if nnz:
+        fn, err_str = _scatter_fns()
+        with _on(dev):
+            err = fn(values.data_ptr(), offsets.data_ptr(),
+                     offsets_t.data_ptr(), nnz, tiles.data_ptr(),
+                     tiles_t.data_ptr(), _stream(dev))
+        if err:
+            raise RuntimeError(f"block_ell_scatter launch failed: "
+                               f"{err_str(err).decode()} (cudaError {err})")
+        LAUNCHES_SCATTER += 1
+    return tiles, tiles_t
 
 
 # ----------------------------------------------------------------------

@@ -8,7 +8,9 @@ Builders, copied from the reference: `block_ell_from_dense`,
 sources buffers from. Their tiles are bit-identical to the reference's
 (tests/test_torch_host_stages.py, tests/test_torch_batching.py); the
 `BlockEllAdj` builders wrap the numpy leaves as CPU tensors without a
-copy.
+copy. The port's own `block_ell_coords_from_csr` is what a sparse batch
+payload carries: the same adjacency as `block_ell_adj_from_csr`'s, as
+nonzeros with their tile offsets, whose tiles `.to(device)` writes.
 
 Dispatch: `spmm(adj, x)` and `spmm_xw(adj, x, w, b)` take a dense
 adjacency (a tensor: `torch.matmul` in x's dtype with fp32
@@ -32,7 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.block_spmm import BlockEllAdj, spmm_ell, spmm_fused
+from repro_torch.kernels.block_spmm import (BlockEllAdj, BlockEllCoords,
+                                            spmm_ell, spmm_fused)
 from repro_torch.kernels.flash_attention import flash_attention
 
 
@@ -49,14 +52,12 @@ class TileBufferPool:
     the data actually written.
 
     Correctness contract: a buffer handed out by `zeros` is recycled
-    after `depth` further same-key requests, so the consumer must be
-    done with a payload by then (training steps consume batches in
-    order; prefetch queues are shallower than `depth`; the DP stacker
-    deep-copies the few batches it retains across an epoch —
-    engine._dp_groups). A buffer that was never `mark`ed is fully
-    re-zeroed on recycle, so forgetting to mark costs speed, never
-    correctness. Not thread-safe — use one pool per producer thread
-    (each sampler owns its own).
+    after `depth` further same-key requests, so the caller must be done
+    with what it built by then. A buffer that was never `mark`ed is
+    fully re-zeroed on recycle, so forgetting to mark costs speed, never
+    correctness. Not thread-safe — use one pool per producer thread.
+    The training payload no longer takes tiles from a pool: a sparse
+    batch ships coordinates (`block_ell_coords_from_csr`).
     """
 
     def __init__(self, depth: int = 8):
@@ -132,11 +133,7 @@ def _block_ell_from_coo(rows, cols, data, nrb: int, ncb: int, block: int,
     cols = np.asarray(cols)
     data = np.asarray(data)
     rb, cb, rlo, clo = _block_coords(rows, cols, B, nrb, ncb)
-    # the tile-key space is tiny (≤ (cap/B)² cells), so occupied tiles
-    # and their per-row ranks come from one O(nnz) bincount + an
-    # O(ntiles) cumsum table — NO O(nnz log nnz) sort anywhere
-    present = (np.bincount(rb.astype(np.int64, copy=False) * ncb + cb,
-                           minlength=nrb * ncb) > 0).reshape(nrb, ncb)
+    present = _occupancy(rb, cb, nrb, ncb)
     need = int(present.sum(1).max()) if present.size else 0
     K = k_slots if k_slots is not None else max(1, need)
     if need > K:
@@ -176,25 +173,12 @@ def _scatter_tiles(present, rb, cb, rlo, clo, data, K: int, B: int,
             pool.mark(cols_flat, empty)
             pool.mark(blocks_flat, empty)
         return blocks_flat.reshape(nrb, K, B, B), cols_arr
-    # rank of tile (r, c) among the occupied tiles of row-block r,
-    # ordered by ascending c — the slot layout the loop-based reference
-    # produces (np.nonzero scans row-major, so no sort needed here either)
-    idt = np.int32 if nrb * K * B * B < 2**31 else np.int64
-    rank = (np.cumsum(present, axis=1) - 1).astype(idt)    # (nrb, ncb)
-    pr, pc = np.nonzero(present)
-    cslot = rank[pr, pc]
+    pr, pc, cslot, flat = _tile_layout(present, rb, cb, rlo, clo, K, B)
     cols_arr[pr, cslot] = pc.astype(np.int32)
     # one flat scatter: distinct coordinates map to distinct flat
     # indices, so plain fancy assignment is exact (and ~5× cheaper than
     # the buffered np.add.at, which is kept for the duplicate case —
-    # f32 accumulation, same bit pattern as the loop-based reference).
-    # The per-tile flat start offset is a tiny (nrb, ncb) table, so the
-    # per-nnz work is one gather + two fused multiply-adds, all int32
-    # whenever the tile array fits (always, for cluster batches).
-    tstart = (rank + np.arange(nrb, dtype=idt)[:, None] * idt(K)) \
-        * idt(B * B)
-    flat = tstart[rb, cb] + rlo.astype(idt, copy=False) * idt(B) \
-        + clo.astype(idt, copy=False)
+    # f32 accumulation, same bit pattern as the loop-based reference)
     if pool is None:
         blocks = np.zeros(nrb * K * B * B, dtype)
     else:
@@ -208,13 +192,55 @@ def _scatter_tiles(present, rb, cb, rlo, clo, data, K: int, B: int,
     return blocks.reshape(nrb, K, B, B), cols_arr
 
 
+def _tile_layout(present, rb, cb, rlo, clo, K: int, B: int):
+    """Where one scatter direction puts each nonzero: the occupied tiles
+    (pr, pc) of the (nrb, ncb) occupancy, in row-major order, the slot
+    each takes in its row-block, and every nonzero's flat offset into
+    the (nrb, K, B, B) tile array (int32 whenever the array fits)."""
+    nrb, ncb = present.shape
+    # rank of tile (r, c) among the occupied tiles of row-block r,
+    # ordered by ascending c — the slot layout the loop-based reference
+    # produces (np.nonzero scans row-major, so no sort needed here either)
+    idt = np.int32 if nrb * K * B * B < 2**31 else np.int64
+    rank = (np.cumsum(present, axis=1) - 1).astype(idt)    # (nrb, ncb)
+    pr, pc = np.nonzero(present)
+    cslot = rank[pr, pc]
+    # the per-tile flat start offset is a tiny (nrb, ncb) table, so the
+    # per-nnz work is one gather on the flat tile key + multiply-adds
+    tstart = ((rank + np.arange(nrb, dtype=idt)[:, None] * idt(K))
+              * idt(B * B)).ravel()
+    flat = np.take(tstart, _tile_key(rb, cb, nrb, ncb)) \
+        + rlo.astype(idt, copy=False) * idt(B) + clo.astype(idt, copy=False)
+    return pr, pc, cslot, flat
+
+
 def _block_coords(rows, cols, B: int, nrb: int, ncb: int):
     """(rows // B, cols // B, rows % B, cols % B) in int32 when the tile
-    grid allows it (it always does for cluster batches)."""
+    grid allows it (it always does for cluster batches); shifts and
+    masks when B is a power of two (the indices are non-negative)."""
     idt = np.int32 if max(nrb, ncb) * B < 2**31 else np.int64
     rows = rows.astype(idt, copy=False)
     cols = cols.astype(idt, copy=False)
+    if B & (B - 1) == 0:
+        shift, mask = B.bit_length() - 1, idt(B - 1)
+        return rows >> shift, cols >> shift, rows & mask, cols & mask
     return rows // B, cols // B, rows % B, cols % B
+
+
+def _tile_key(rb, cb, nrb: int, ncb: int):
+    """Each nonzero's tile, row-major in the (nrb, ncb) grid."""
+    if nrb * ncb >= 2**31:
+        rb = rb.astype(np.int64)
+    return rb * rb.dtype.type(ncb) + cb
+
+
+def _occupancy(rb, cb, nrb: int, ncb: int):
+    """The (nrb, ncb) tile occupancy. The tile-key space is tiny (≤
+    (cap/B)² cells), so occupied tiles and their per-row ranks come
+    from one O(nnz) bincount + an O(ntiles) cumsum table — NO
+    O(nnz log nnz) sort anywhere."""
+    return (np.bincount(_tile_key(rb, cb, nrb, ncb), minlength=nrb * ncb)
+            > 0).reshape(nrb, ncb)
 
 
 def _expand_rows(indptr):
@@ -266,10 +292,9 @@ def block_ell_needed_k(indptr, indices, block: int, n_cols: int,
     n = len(indptr) - 1
     B = block
     nrb, ncb = -(-max(n, n_rows or 0) // B), -(-n_cols // B)
-    rb = _expand_rows(indptr) // B
-    cb = np.asarray(indices) // B
-    present = (np.bincount(rb.astype(np.int64, copy=False) * ncb + cb,
-                           minlength=nrb * ncb) > 0).reshape(nrb, ncb)
+    rb, cb, _, _ = _block_coords(_expand_rows(indptr), np.asarray(indices),
+                                 B, nrb, ncb)
+    present = _occupancy(rb, cb, nrb, ncb)
     if not present.any():
         return 0, 0
     return int(present.sum(1).max()), int(present.sum(0).max())
@@ -383,41 +408,20 @@ def block_ell_adj_from_dense(adj: np.ndarray, block: int = 128,
                                   row_k, row_k_t)
 
 
-def block_ell_adj_from_csr(indptr, indices, data, n_cols: int,
-                           block: int = 128, k_slots: int | None = None,
-                           k_slots_t: int | None = None,
-                           n_rows: int | None = None,
-                           assume_unique: bool | None = None,
-                           k_chooser=None, pool=None) -> BlockEllAdj:
-    """BlockEllAdj from CSR without densifying — the ClusterBatcher
-    sparse path (normalize_csr output goes straight to tiles). The
-    transpose is built DIRECTLY from the CSR coordinates (CSC = swapped
-    COO through the same vectorized assembler — tile (c,→i) of Âᵀ is
-    tile (i,→c) of Â transposed), never tile-by-tile from the forward
-    tiles. `assume_unique=True` skips the duplicate-coordinate probe
-    when the caller knows the CSR is canonical (everything
-    normalize_csr emits is). `k_chooser` (mutually exclusive with
-    k_slots/k_slots_t) maps the measured (need_fwd, need_t) to one K for
-    both directions — the fill-adaptive bucket policy picks its bucket
-    HERE, from the occupancy this builder computes anyway. `pool`
-    (TileBufferPool) reuses the big tile buffers across calls — see the
-    pool's lifetime contract; output values are bit-identical either
-    way."""
+def _csr_tile_plan(indptr, indices, n_cols: int, block: int, k_slots,
+                   k_slots_t, n_rows, k_chooser):
+    """What both CSR adjacency builders compute once and share between
+    the two directions: the COO rows, the block/offset coordinates (the
+    transpose swaps them), the (nrb, ncb) tile occupancy (the
+    transposed occupancy is its transpose) and the two K, checked
+    against the occupancy."""
     n = len(indptr) - 1
     B = block
     nrb, ncb = -(-max(n, n_rows or 0) // B), -(-n_cols // B)
     rows = _expand_rows(indptr)
-    cols_coo = np.asarray(indices)
-    data = np.asarray(data)
-    # everything O(nnz) is computed ONCE and shared by both scatter
-    # directions: the duplicate probe, the block/offset coordinates (the
-    # transpose swaps them), and the tile-occupancy bincount (the
-    # transposed occupancy is its transpose)
-    uniq_coords = assume_unique if assume_unique is not None else \
-        not _has_duplicate_coords(rows, cols_coo, np.int64(ncb) * B)
-    rb, cb, rlo, clo = _block_coords(rows, cols_coo, B, nrb, ncb)
-    present = (np.bincount(rb.astype(np.int64, copy=False) * ncb + cb,
-                           minlength=nrb * ncb) > 0).reshape(nrb, ncb)
+    cols = np.asarray(indices)
+    rb, cb, rlo, clo = _block_coords(rows, cols, B, nrb, ncb)
+    present = _occupancy(rb, cb, nrb, ncb)
     need_f = int(present.sum(1).max()) if present.size else 0
     need_t = int(present.sum(0).max()) if present.size else 0
     if k_chooser is not None:
@@ -434,15 +438,76 @@ def block_ell_adj_from_csr(indptr, indices, data, n_cols: int,
     if need_t > Kt:
         raise ValueError(
             f"k_slots={Kt} drops non-zero tiles (need {need_t})")
+    return rows, cols, (rb, cb, rlo, clo), present, K, Kt
+
+
+def block_ell_adj_from_csr(indptr, indices, data, n_cols: int,
+                           block: int = 128, k_slots: int | None = None,
+                           k_slots_t: int | None = None,
+                           n_rows: int | None = None,
+                           assume_unique: bool | None = None,
+                           k_chooser=None) -> BlockEllAdj:
+    """BlockEllAdj from CSR without densifying. The transpose is built
+    DIRECTLY from the CSR coordinates (CSC = swapped COO through the
+    same vectorized assembler — tile (c,→i) of Âᵀ is tile (i,→c) of Â
+    transposed), never tile-by-tile from the forward tiles. `assume_unique=True` skips the duplicate-coordinate probe
+    when the caller knows the CSR is canonical (everything
+    normalize_csr emits is). `k_chooser` (mutually exclusive with
+    k_slots/k_slots_t) maps the measured (need_fwd, need_t) to one K for
+    both directions — the fill-adaptive bucket policy picks its bucket
+    HERE, from the occupancy this builder computes anyway."""
+    B = block
+    data = np.asarray(data)
+    rows, cols_coo, (rb, cb, rlo, clo), present, K, Kt = _csr_tile_plan(
+        indptr, indices, n_cols, B, k_slots, k_slots_t, n_rows, k_chooser)
+    uniq_coords = assume_unique if assume_unique is not None else \
+        not _has_duplicate_coords(rows, cols_coo,
+                                  np.int64(present.shape[1]) * B)
     blocks, cols = _scatter_tiles(present, rb, cb, rlo, clo, data, K, B,
-                                  uniq_coords, pool=pool)
+                                  uniq_coords)
     blocks_t, cols_t = _scatter_tiles(present.T, cb, rb, clo, rlo, data,
-                                      Kt, B, uniq_coords, pool=pool)
+                                      Kt, B, uniq_coords)
     # the occupancy bincount computed above IS the K-specialization map —
     # per-row-block live slots forward, per-col-block for the transpose
     return BlockEllAdj.from_numpy(blocks, cols, blocks_t, cols_t,
                                   present.sum(1).astype(np.int32),
                                   present.sum(0).astype(np.int32))
+
+
+def block_ell_coords_from_csr(indptr, indices, data, n_cols: int,
+                              block: int = 128, k_slots: int | None = None,
+                              k_slots_t: int | None = None,
+                              n_rows: int | None = None,
+                              k_chooser=None) -> BlockEllCoords:
+    """The adjacency `block_ell_adj_from_csr` builds, as coordinates —
+    the ClusterBatcher sparse path (normalize_csr output goes straight
+    here): the same K choice and checks, the same column maps and
+    occupancy, and for each nonzero its fp32 value and its flat offsets
+    into the forward and the transposed tiles, packed into one host
+    buffer; no tile is written until `.to(device)`. The coordinates
+    must be unique (canonical CSR, as normalize_csr emits), and the
+    offsets int32."""
+    B = block
+    data = np.asarray(data)
+    _, _, (rb, cb, rlo, clo), present, K, Kt = _csr_tile_plan(
+        indptr, indices, n_cols, B, k_slots, k_slots_t, n_rows, k_chooser)
+    nrb, ncb = present.shape
+    if max(nrb * K, ncb * Kt) * B * B >= 2**31:
+        raise ValueError(f"tiles of ({nrb}, {K}) and ({ncb}, {Kt}) slots "
+                         f"of {B}² need offsets beyond int32")
+    coords = BlockEllCoords.allocate(len(data), (nrb, K, ncb, Kt, B))
+    s = {k: v.numpy() for k, v in coords.sections().items()}
+    s["values"][:] = data
+    for direction, (occ, r, c, lo_r, lo_c, k) in (
+            ("", (present, rb, cb, rlo, clo, K)),
+            ("_t", (present.T, cb, rb, clo, rlo, Kt))):
+        pr, pc, cslot, flat = _tile_layout(occ, r, c, lo_r, lo_c, k, B)
+        s["offsets" + direction][:] = flat
+        cols = s["block_cols" + direction]
+        cols[:] = 0
+        cols[pr, cslot] = pc
+        s["row_k" + direction][:] = occ.sum(1)
+    return coords
 
 
 # ----------------------------------------------------------------------

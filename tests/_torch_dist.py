@@ -121,8 +121,11 @@ def run_plan(tasks, workdir, world: int = 2, timeout: float = 420) -> None:
 # ----------------------------------------------------------------------
 def save_batches(arrays: dict, prefix: str, batches) -> None:
     """Host batch tuples (port `ClusterBatch.astuple()`) into `arrays`
-    under `<prefix>_<i>_<field>`."""
+    under `<prefix>_<i>_<field>`; a compact adjacency (`BlockEllCoords`)
+    is saved as the tiles it expands to."""
     for i, (adj, *rest) in enumerate(batches):
+        if hasattr(adj, "sections"):
+            adj = adj.to("cpu")
         if hasattr(adj, "tensors"):
             for name, t in zip(ADJ_FIELDS, adj.tensors()):
                 if t is not None:

@@ -18,7 +18,7 @@ from repro.graph.generators import make_dataset as ref_make_dataset
 from repro_torch.core.batching import ClusterBatcher, batch_to_device
 from repro_torch.graph.generators import make_dataset
 from repro_torch.graph.partition import partition_graph
-from repro_torch.kernels.block_spmm import BlockEllAdj
+from repro_torch.kernels.block_spmm import BlockEllAdj, BlockEllCoords
 
 FIELDS = ("blocks", "block_cols", "blocks_t", "block_cols_t", "row_k",
           "row_k_t")
@@ -36,7 +36,10 @@ def graphs():
 
 
 def _assert_same_payload(ref, got):
-    r_adj, g_adj = ref.adj, got.adj
+    """Bit for bit; the port's compact adjacency is compared as the tiles
+    it expands to."""
+    r_adj, g_adj = (a.to("cpu") if isinstance(a, BlockEllCoords) else a
+                    for a in (ref.adj, got.adj))
     if isinstance(g_adj, BlockEllAdj):
         for f in FIELDS:
             a, b = np.asarray(getattr(r_adj, f)), getattr(g_adj, f).numpy()
@@ -130,14 +133,17 @@ def test_batch_to_device_gives_equal_tensors(graphs, sparse):
     kw = dict(clusters_per_batch=2)
     if sparse:
         kw.update(sparse_adj=True, block_size=16, pad_multiple=16)
-    _, port = _pair(graphs, **kw)
+    ref, port = _pair(graphs, **kw)
+    want = next(iter(ref.epoch(0)))
     batch = next(iter(port.epoch(0)))
     moved = batch_to_device(batch.astuple(), "cpu")
     for host, dev in zip(batch.astuple(), moved):
         if isinstance(dev, BlockEllAdj):
-            assert dev.checked
-            for h, d in zip(host.tensors(), dev.tensors()):
-                assert torch.equal(h, d)
+            assert isinstance(host, BlockEllCoords) and dev.checked
+            for f, d in zip(FIELDS, dev.tensors()):
+                w = np.asarray(getattr(want.adj, f))
+                assert w.dtype == d.numpy().dtype
+                assert np.array_equal(w, d.numpy()), f
         else:
             assert isinstance(dev, torch.Tensor)
             assert np.array_equal(np.asarray(host), dev.numpy())

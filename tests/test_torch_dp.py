@@ -218,20 +218,22 @@ def port(reference):
 # ----------------------------------------------------------------------
 # _dp_groups
 # ----------------------------------------------------------------------
-def _mixed_stream(batchers, epoch, n):
+def _mixed_stream(batchers, epoch, n, snapshot=lambda b: b):
     """Alternating batches of the given batchers (two K buckets), n in
     all (not a multiple of any group size, so the wrap-around fill
-    runs)."""
+    runs). `snapshot` copies each batch as it is built, before a pooled
+    builder recycles its buffers."""
     its = [b.epoch(epoch) for b in batchers]
     out = []
     while len(out) < n:
         for it in its:
-            out.append(next(it).astuple())
+            out.append(snapshot(next(it).astuple()))
     return out[:n]
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_dp_groups_match_reference(n):
+    import jax
     from repro.core import engine as ref_engine
     from repro.core.batching import ClusterBatcher as RefBatcher
     from repro.graph import make_dataset as ref_make_dataset
@@ -247,19 +249,24 @@ def test_dp_groups_match_reference(n):
         return [cls(g, parts, clusters_per_batch=1, seed=0, sparse_adj=True,
                     k_slots=k, reuse_tile_buffers=True)
                 for k in ("auto", "cap")]
+    # the reference's pooled tile buffers recycle within these 9
+    # batches; the port's compact payloads own their buffers
     ref = _mixed_stream(batchers(ref_make_dataset, ref_partition,
-                                 RefBatcher), 0, 9)
+                                 RefBatcher), 0, 9,
+                        lambda b: jax.tree_util.tree_map(np.copy, b))
     got = _mixed_stream(batchers(make_dataset, partition_graph,
                                  ClusterBatcher), 0, 9)
     ref_groups = list(ref_engine._dp_groups(iter(ref), n))
     got_groups = list(_dp_groups(iter(got), n))
-    assert len({b[0].blocks.shape for b in got}) == 2     # two buckets
+    assert len({b[0].shape for b in got}) == 2            # two buckets
     assert [len(g) for g in got_groups] == [len(g) for g in ref_groups]
     for rg, gg in zip(ref_groups, got_groups):
         assert len(gg) == n
+        assert len({b[0].shape for b in gg}) == 1         # one K a group
         for rb, gb in zip(rg, gg):
-            assert tuple(gb[0].blocks.shape) == tuple(rb[0].blocks.shape)
-            np.testing.assert_array_equal(gb[0].blocks.numpy(),
+            tiles = gb[0].to("cpu").blocks       # the compact adjacency's
+            assert tuple(tiles.shape) == tuple(rb[0].blocks.shape)
+            np.testing.assert_array_equal(tiles.numpy(),
                                           np.asarray(rb[0].blocks))
             np.testing.assert_array_equal(gb[1], rb[1])      # features
             assert int(gb[5]) == int(rb[5])                  # num_real

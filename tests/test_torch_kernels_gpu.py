@@ -209,6 +209,114 @@ def test_block_ell_adj_checks_columns_when_built_on_the_gpu(cuda):
                     torch.zeros(2, 3, dtype=torch.int32, device=cuda))
 
 
+ADJ_FIELDS = ("blocks", "block_cols", "blocks_t", "block_cols_t", "row_k",
+              "row_k_t")
+# (row blocks of 128, real rows, nonzeros asked for, band about the
+# diagonal): the training batches of ppi_sota and reddit (12 × 12 and
+# 27 × 27 tiles, ≈27,500 and ≈15,200 nonzeros), and a banded reddit
+# shape whose "auto" bucket is below cap/B
+SCATTER_CASES = {"ppi": (12, 1140, 27_540, None),
+                 "reddit": (27, 3104, 15_200, None),
+                 "reddit_auto": (27, 3104, 15_200, 150)}
+
+
+def _batch_csr(n, nnz, band, seed):
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, nnz)
+    c = (rng.integers(0, n, nnz) if band is None else
+         np.clip(r + rng.integers(-band, band + 1, nnz), 0, n - 1))
+    key = np.unique(r.astype(np.int64) * n + c)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(key // n, minlength=n), out=indptr[1:])
+    data = rng.random(len(key)).astype(np.float32) + 0.01
+    return indptr, (key % n).astype(np.int32), data
+
+
+def _scatter_inputs(case):
+    from repro_torch.kernels.ops import (block_ell_adj_from_csr,
+                                         block_ell_coords_from_csr)
+    nrb, n, nnz, band = SCATTER_CASES[case]
+    cap = nrb * 128
+    ip, ix, dt = _batch_csr(n, nnz, band, seed=nrb)
+    kw = dict(n_cols=cap, block=128, n_rows=cap)
+    if band is None:
+        kw.update(k_slots=nrb, k_slots_t=nrb)
+    else:
+        kw.update(k_chooser=lambda nf, nt: 1 << (max(nf, nt, 1)
+                                                 - 1).bit_length())
+    return (block_ell_coords_from_csr(ip, ix, dt, **kw),
+            block_ell_adj_from_csr(ip, ix, dt, assume_unique=True, **kw))
+
+
+def _assert_adj_equal(got, want):
+    assert got.checked
+    for f in ADJ_FIELDS:
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("non_blocking", [False, True])
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_device_scatter_matches_host_tiles(cuda, case, non_blocking):
+    """`BlockEllCoords.to("cuda")`: one scatter launch, and the tiles
+    `block_ell_adj_from_csr` builds on the host, bit for bit."""
+    from repro_torch.kernels import block_spmm
+    coords, want = _scatter_inputs(case)
+    if SCATTER_CASES[case][3] is not None:
+        assert want.block_cols.shape[1] < SCATTER_CASES[case][0]
+    before = block_spmm.LAUNCHES_SCATTER
+    got = coords.to(cuda, non_blocking=non_blocking)
+    torch.cuda.synchronize()
+    assert block_spmm.LAUNCHES_SCATTER == before + 1
+    assert got.blocks.is_cuda and got.block_cols.is_cuda
+    _assert_adj_equal(got, want)
+
+
+def test_device_scatter_needs_no_sync(cuda):
+    """Nothing in `.to("cuda")` waits on the device: the copy is
+    asynchronous from pinned memory (at prefetch > 0; the blocking copy
+    of prefetch 0 is a sync of its own), then a zero fill and a launch."""
+    coords, want = _scatter_inputs("reddit")
+    coords.to(cuda, non_blocking=True)     # loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = coords.to(cuda, non_blocking=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _assert_adj_equal(got, want)
+
+
+def test_sparse_payload_moves_to_the_gpu(cuda):
+    """A ClusterBatcher payload on the card: the compact adjacency
+    scattered there (one `copy.tiles_on_device`), equal to its CPU
+    expansion, and the copy counts the packed buffer's bytes."""
+    from repro_torch.core.batching import ClusterBatcher, batch_to_device
+    from repro_torch.graph.generators import make_dataset
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.runtime import trace
+    g = make_dataset("ppi", scale=0.03, seed=0)
+    parts, _ = partition_graph(g, 8, method="metis", seed=0, cache=False)
+    host = next(iter(ClusterBatcher(g, parts, clusters_per_batch=2,
+                                    sparse_adj=True).epoch(0))).astuple()
+    trace.reset()
+    trace.enable()
+    try:
+        dev = batch_to_device(host, cuda)
+    finally:
+        trace.disable()
+    torch.cuda.synchronize()
+    (copy,) = [s for s in trace.spans() if s.name == "batch.copy"]
+    trace.reset()
+    assert copy.counters["copy.tiles_on_device"] == 1
+    assert copy.counters["copy.adj_bytes"] == host[0].packed.numel() * 4
+    _assert_adj_equal(dev[0], host[0].to("cpu"))
+    for h, d in zip(host[1:], dev[1:]):
+        assert np.array_equal(np.asarray(h), d.cpu().numpy())
+
+
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_differentiable_products_on_gpu_match_cpu(cuda, fused, dtype):

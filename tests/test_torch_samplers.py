@@ -26,7 +26,7 @@ from repro_torch.core import experiment, samplers
 from repro_torch.core.engine import StopAtStepHook
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.generators import make_dataset
-from repro_torch.kernels.block_spmm import BlockEllAdj
+from repro_torch.kernels.block_spmm import BlockEllAdj, BlockEllCoords
 from repro_torch.nn.tree import tree_leaves
 
 FIELDS = ("blocks", "block_cols", "blocks_t", "block_cols_t", "row_k",
@@ -44,7 +44,10 @@ def graphs():
 
 
 def _assert_same_payload(ref, got):
-    r_adj, g_adj = ref.adj, got.adj
+    """Bit for bit; the port's compact adjacency is compared as the tiles
+    it expands to."""
+    r_adj, g_adj = (a.to("cpu") if isinstance(a, BlockEllCoords) else a
+                    for a in (ref.adj, got.adj))
     if isinstance(g_adj, BlockEllAdj):
         for f in FIELDS:
             a, b = np.asarray(getattr(r_adj, f)), getattr(g_adj, f).numpy()
@@ -99,11 +102,13 @@ def test_epoch_payloads_bit_equal_to_reference(graphs, case, seed):
         assert port.k_plan.buckets == ref.k_plan.buckets
         assert port.k_plan.sampled_ft == ref.k_plan.sampled_ft
     for epoch in (0, 1):
-        want = list(ref.epoch(epoch))
-        got = list(port.epoch(epoch))
-        assert len(got) == len(want) == ref.steps_per_epoch()
-        for a, b in zip(want, got):
+        want, got = [], []
+        for a, b in zip(ref.epoch(epoch), port.epoch(epoch)):
+            # pooled tile buffers recycle: compare before moving on
             _assert_same_payload(a, b)
+            want.append(a)
+            got.append(b)
+        assert len(got) == len(want) == ref.steps_per_epoch()
         # the estimator weights are fractional, and only on real nodes
         lm = got[0].loss_mask
         assert (lm[~got[0].node_mask] == 0).all()
@@ -120,9 +125,8 @@ def test_start_step_fast_forward_bit_equal(graphs, case, start):
     assert len(got) == len(want) == ref.steps_per_epoch() - start
     for a, b in zip(want, got):
         _assert_same_payload(a, b)
-    if not port.reuse_tile_buffers:      # equal to build-and-discard
-        for a, b in zip(list(port.epoch(2))[start:], got):
-            _assert_same_payload(a, b)
+    for a, b in zip(list(port.epoch(2))[start:], got):  # build-and-discard
+        _assert_same_payload(a, b)
 
 
 @pytest.mark.parametrize("case", ["node_dense", "node_degree_sparse_auto",

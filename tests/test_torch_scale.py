@@ -140,10 +140,11 @@ def test_batcher_payloads_bit_equal(recipe):
     assert pb.node_cap == rb.node_cap
     assert pb.steps_per_epoch() == rb.steps_per_epoch()
     for p, r in zip(_first_batches(pb, 3), _first_batches(rb, 3)):
-        assert p.adj.blocks.shape[1] == np.asarray(r.adj.blocks).shape[1] \
+        p_adj = p.adj.to("cpu")          # the tiles the payload expands to
+        assert p_adj.blocks.shape[1] == np.asarray(r.adj.blocks).shape[1] \
             == pb.node_cap // kw["block_size"]
         for f in ADJ_FIELDS:
-            _assert_bit_equal(getattr(p.adj, f), getattr(r.adj, f))
+            _assert_bit_equal(getattr(p_adj, f), getattr(r.adj, f))
         for f in PAYLOAD_FIELDS:
             _assert_bit_equal(getattr(p, f), getattr(r, f))
 
@@ -165,8 +166,9 @@ def test_overflow_subsample_matches_reference(recipe):
     assert pb.overflow_count == rb.overflow_count > 0
     for p, r in zip(got, want):
         assert int(p.num_real) == cap
+        p_adj = p.adj.to("cpu")
         for f in ADJ_FIELDS:
-            _assert_bit_equal(getattr(p.adj, f), getattr(r.adj, f))
+            _assert_bit_equal(getattr(p_adj, f), getattr(r.adj, f))
         for f in PAYLOAD_FIELDS:
             _assert_bit_equal(getattr(p, f), getattr(r, f))
     if recipe.name == "amazon2m":
