@@ -52,6 +52,12 @@ this script. Phases, each of which must pass (no failure is caught):
 4. One-step parity: the same params and batch (dropout 0), `gcn_loss` +
    backward on the GPU (kernels) against the CPU (plain versions); loss
    within 1e-4 relative, grads within 1e-4·max(1, max|g_cpu|).
+   Then the step as CUDA graphs: 20 steps of the recipe (dropout on)
+   from one seed on 20 payloads already on the card, once eager (the
+   `make_train_step` body, op by op) and once through the backend
+   (captured at step 2, replayed after): each one's median host time a
+   step and nodes/s over steps 3-20, and every loss, aux and state leaf
+   bitwise equal. Phase 18 does the same for reddit and amazon2m.
 5. One epoch of the unfused path (`model.fuse_spmm=false`): 10 block-ELL
    launches per step, none fused.
 6. Serve the checkpoint that phase 3 trained: `serve_gcn.main
@@ -289,7 +295,8 @@ this script. Phases, each of which must pass (no failure is caught):
    `run_experiment.main` (1,500 steps an epoch, 3 + 3 launches a step,
    the loss finite and falling, epoch s, peak device memory, the test
    accuracy of the host evaluation), the batcher's node_cap, the step
-   split, one step card vs CPU, the kernels at its widths, the Table 8
+   split, one step card vs CPU, phase 4's eager-against-graphed steps
+   (reddit too), the kernels at its widths, the Table 8
    comparison with the paper's figures beside, and serving's tiles for
    one median-size cluster against all column blocks at width 400 (K,
    tile bytes, host build, copy and kernel ms, held against the plain
@@ -322,6 +329,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -1147,6 +1155,75 @@ def phase_step_parity(results: dict, exp, key="step_parity",
             or out["cpu"][2] != (0, 0):
         raise AssertionError(f"GPU step disagrees with the CPU step: "
                              f"{results[key]}")
+
+
+def phase_step_graph(results: dict, exp, key="step_graph",
+                     tag="step graph", steps: int = 20) -> None:
+    """`steps` steps of `exp`'s recipe from one seed on the same payloads
+    (already on the card), eager (the `make_train_step` body launched op
+    by op) and through the backend (replayed as a CUDA graph from its
+    second step): the median host time a step and nodes/s over steps 3
+    on, and every loss, aux and state leaf bitwise equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batching import batch_to_device
+    from repro_torch.core.engine import make_train_step
+    from repro_torch.core.precision import policy_from_config
+    from repro_torch.nn.tree import tree_leaves
+
+    batches = []
+    epoch = 0
+    while len(batches) < steps:
+        batches += list(itertools.islice(exp.batcher.epoch(epoch),
+                                         steps - len(batches)))
+        epoch += 1
+    nodes = sum(int(b.num_real) for b in batches[2:])
+    payloads = [batch_to_device(b.astuple(), "cuda") for b in batches]
+    body = make_train_step(exp.cfg, exp.opt)
+    keys = ["params", "opt", "rng"] + (
+        ["scale"] if policy_from_config(exp.cfg).scaled else [])
+
+    def eager(state, payload):
+        *new, loss, aux = body(*(state[k] for k in keys), payload)
+        return dict(zip(keys, new)), loss, aux
+
+    runs = {}
+    for name, step in (("eager", eager), ("graphed", exp.engine.backend.step)):
+        state = exp.engine.init_state()
+        outs, host = [], []
+        for i, payload in enumerate(payloads):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            t = time.perf_counter()
+            state, loss, aux = step(state, payload)
+            host.append(time.perf_counter() - t)
+            outs.append((loss, aux))
+        torch.cuda.synchronize()
+        runs[name] = dict(state=state, outs=outs,
+                          host_ms=float(np.median(host[2:])) * 1e3,
+                          nodes_per_s=nodes / (time.perf_counter() - t0))
+    e, g = runs["eager"], runs["graphed"]
+    same_out = all(torch.equal(a[0], b[0]) and all(
+        torch.equal(a[1][k], b[1][k]) for k in a[1])
+        for a, b in zip(e["outs"], g["outs"]))
+    leaves = [(a, b) for a, b in zip(tree_leaves(e["state"]),
+                                     tree_leaves(g["state"]))
+              if torch.is_tensor(a)]
+    same_state = all(torch.equal(a, b) for a, b in leaves)
+    results[key] = dict(steps=steps, leaves=len(leaves),
+                        losses_bitwise=same_out, state_bitwise=same_state,
+                        **{f"{n}_{k}": runs[n][k] for n in runs
+                           for k in ("host_ms", "nodes_per_s")})
+    print(f"[{tag}] {steps} steps from one seed: host a step eager "
+          f"{e['host_ms']:.3f} ms, graphed {g['host_ms']:.3f} ms; nodes/s "
+          f"eager {e['nodes_per_s']:.0f}, graphed {g['nodes_per_s']:.0f} "
+          f"(steps 3-{steps}, payloads on the card); losses and aux "
+          f"bitwise {same_out}, {len(leaves)} state leaves bitwise "
+          f"{same_state}")
+    if not (same_out and same_state):
+        raise AssertionError(f"the graphed step differs from the eager "
+                             f"one: {results[key]}")
 
 
 def phase_unfused(results: dict, work: pathlib.Path) -> None:
@@ -4047,6 +4124,8 @@ def _scale_reddit(results: dict, work: pathlib.Path, smi: str,
     phase_step_profile(results, exp, key="reddit_step", tag="reddit step")
     phase_step_parity(results, exp, key="reddit_parity",
                       tag="reddit parity")
+    phase_step_graph(results, exp, key="reddit_step_graph",
+                     tag="reddit step graph")
     del exp
     serve_launches, *_ = _serve_checkpoint(
         results, work, trained["checkpoint"], "reddit", SCALE_SETS,
@@ -4083,6 +4162,8 @@ def _scale_amazon2m(results: dict, work: pathlib.Path, smi: str,
                        tag="amazon2m step")
     phase_step_parity(results, exp, key="amazon2m_parity",
                       tag="amazon2m parity")
+    phase_step_graph(results, exp, key="amazon2m_step_graph",
+                     tag="amazon2m step graph")
     results.setdefault("scale_kernels", []).extend(
         _scale_kernels(results, "amazon2m", nrb, K, smi))
     _table8(results, smi)
@@ -4241,6 +4322,8 @@ def _run(run_t0: float, work: pathlib.Path, procs: list) -> int:
     t("3 step profile", lambda: phase_step_profile(
         results, _step_parts(TRAIN_SETS)))
     t("4 step parity", lambda: phase_step_parity(
+        results, _step_parts(TRAIN_SETS)))
+    t("4 step graph", lambda: phase_step_graph(
         results, _step_parts(TRAIN_SETS)))
     t("5 unfused", phase_unfused, results, work)
     serve_launches = t("6 serve", phase_serve, results, work,

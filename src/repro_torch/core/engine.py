@@ -3,7 +3,8 @@ port of `repro.core.engine`.
 
 * `StepBackend` — the protocol one training step implements.
   `SingleDeviceBackend` runs the per-batch step on one device (a CUDA
-  GPU, or the CPU when asked). `DataParallelBackend` — the counterpart
+  GPU, where it replays the step as CUDA graphs, or the CPU when
+  asked). `DataParallelBackend` — the counterpart
   of the reference's `ShardMapBackend` — runs
   `dist.steps.make_gcn_train_step` on every rank of a torch.distributed
   process group, fed by the `_dp_groups` grouping.
@@ -57,6 +58,7 @@ from repro_torch.core.precision import (all_finite, init_scale_state,
                                         select_tree, unscale_grads,
                                         update_scale_state)
 from repro_torch.core.prefetch import prefetch_iter
+from repro_torch.core.step_graph import GraphedStep
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import spmm as spmm_dispatch
 from repro_torch.kernels.ops import spmm_xw as spmm_xw_dispatch
@@ -134,6 +136,25 @@ def make_train_step(cfg: GCNConfig, opt: Optimizer,
     return faults.wrap_step_faults(scaled_step)
 
 
+def _on_state(step, scaled: bool):
+    """`step` (a `make_train_step` step) as a function of (state tree,
+    payload) -> (state tree, loss, aux)."""
+    if scaled:
+        def run(state, payload):
+            params, opt_state, rng, scale, loss, aux = step(
+                state["params"], state["opt"], state["rng"],
+                state["scale"], payload)
+            return {"params": params, "opt": opt_state, "rng": rng,
+                    "scale": scale}, loss, aux
+        return run
+
+    def run(state, payload):
+        params, opt_state, rng, loss, aux = step(
+            state["params"], state["opt"], state["rng"], payload)
+        return {"params": params, "opt": opt_state, "rng": rng}, loss, aux
+    return run
+
+
 def _dp_groups(batches, n: int):
     """Stream fixed-shape batches into groups of exactly n (one slice
     per rank), grouped by shape signature (`payload_shapes`: an
@@ -192,7 +213,15 @@ class StepBackend(Protocol):
 
 class SingleDeviceBackend:
     """The per-batch step on one device: `device` defaults to "cuda"
-    and raises without a GPU unless "cpu" is asked for."""
+    and raises without a GPU unless "cpu" is asked for.
+
+    On a CUDA device the step runs as CUDA graphs (`core/step_graph.py`
+    `GraphedStep`): the same `make_train_step` body, run eagerly at the
+    first step of each payload shape signature, captured at the second
+    and replayed from then on, one graph launch a step. On the CPU it
+    runs eagerly. Either way `step` neither writes the state or payload
+    it is given nor reuses the memory of what it returned: a state, loss
+    or aux stays valid for as long as its holder keeps it."""
 
     # one raw sampler payload in flight per step (Engine's pool-depth
     # guard sizes tile-buffer lifetime off this)
@@ -204,7 +233,15 @@ class SingleDeviceBackend:
         self.device = resolve_device(device)
         self.opt = opt
         self._policy = policy_from_config(cfg)
-        self._step = make_train_step(cfg, opt, spmm, spmm_xw)
+        step = make_train_step(cfg, opt, spmm, spmm_xw)
+        if self.device.type == "cuda":
+            # the fault wrapper poisons a payload before the graph copies
+            # it in: inside a capture it would act once, at capture time
+            self._step = faults.wrap_step_faults(GraphedStep(
+                _on_state(step.__wrapped__, self._policy.scaled),
+                self.device))
+        else:
+            self._step = _on_state(step, self._policy.scaled)
 
     def init(self, params, rng):
         state = {"params": params, "opt": self.opt.init(params), "rng": rng}
@@ -216,15 +253,7 @@ class SingleDeviceBackend:
         return batches
 
     def step(self, state, payload):
-        if self._policy.scaled:
-            params, opt_state, rng, scale, loss, aux = self._step(
-                state["params"], state["opt"], state["rng"],
-                state["scale"], payload)
-            return {"params": params, "opt": opt_state, "rng": rng,
-                    "scale": scale}, loss, aux
-        params, opt_state, rng, loss, aux = self._step(
-            state["params"], state["opt"], state["rng"], payload)
-        return {"params": params, "opt": opt_state, "rng": rng}, loss, aux
+        return self._step(state, payload)
 
     def params(self, state):
         return state["params"]

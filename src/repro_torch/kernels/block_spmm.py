@@ -54,7 +54,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import spmm_block_ell_ref, spmm_fused_ref
 
 # kernel launches since import (or since a caller reset it): a run shows
-# it went through a kernel by reading these before and after
+# it went through a kernel by reading these before and after; a CUDA
+# graph's replay adds the launches its capture counted (`add_launches`)
 LAUNCHES = 0           # block_ell_spmm (y = Â·X)
 LAUNCHES_FUSED = 0     # block_ell_spmm_fused (y = Â·(XW + b)), one per call
 LAUNCHES_SCATTER = 0   # block_ell_scatter (tiles of a BlockEllCoords)
@@ -229,6 +230,37 @@ def _partials(x: torch.Tensor, stream: int, elems: int) -> Optional[int]:
     if part is None or part.numel() < elems:
         part = _WORKSPACE[key] = x.new_empty(elems, dtype=torch.float32)
     return part.data_ptr()
+
+
+@contextlib.contextmanager
+def graph_workspace():
+    """For the capture of a CUDA graph: the launches inside take their
+    split partials from a dict of their own, yielded, which the caller
+    keeps for as long as the graph lives (a replay writes through the
+    pointers its capture saw, so those buffers must never be freed or
+    regrown under it). The shared per-stream buffers are neither used
+    nor replaced meanwhile."""
+    global _WORKSPACE
+    saved, _WORKSPACE = _WORKSPACE, {}
+    try:
+        yield _WORKSPACE
+    finally:
+        _WORKSPACE = saved
+
+
+def launch_counts() -> Tuple[int, int, int]:
+    """(LAUNCHES, LAUNCHES_FUSED, LAUNCHES_SCATTER) as they stand."""
+    return LAUNCHES, LAUNCHES_FUSED, LAUNCHES_SCATTER
+
+
+def add_launches(counts: Tuple[int, int, int]) -> None:
+    """Add `counts`, ordered as `launch_counts` gives them, to the
+    counters: a CUDA graph's capture executes none of the launches it
+    counted (it takes them back) and each replay executes all of them."""
+    global LAUNCHES, LAUNCHES_FUSED, LAUNCHES_SCATTER
+    LAUNCHES += counts[0]
+    LAUNCHES_FUSED += counts[1]
+    LAUNCHES_SCATTER += counts[2]
 
 
 def _check_grid(plan: TilePlan, m_tiles: int, n: int) -> None:

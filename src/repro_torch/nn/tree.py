@@ -35,8 +35,26 @@ def tree_leaves(tree: Tree, is_leaf: Optional[Callable] = None
 def tree_unflatten(tree: Tree, leaves) -> Tree:
     """A tree of `tree`'s structure holding `leaves`, taken in
     `tree_leaves` order."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), tree)
+    return tree_builder(tree)(iter(leaves))
+
+
+def tree_builder(tree: Tree) -> Callable:
+    """A function that makes a tree of `tree`'s structure from an
+    iterator over its leaves, in `tree_leaves` order. The walk over the
+    structure is done here, once, so building many trees of one
+    structure costs little more than the containers themselves."""
+    if tree is None:
+        return lambda it: None
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [tree_builder(tree[k]) for k in keys]
+        return lambda it: {k: f(it) for k, f in zip(keys, subs)}
+    if isinstance(tree, (list, tuple)):
+        cls, subs = type(tree), [tree_builder(v) for v in tree]
+        if is_namedtuple(tree):
+            return lambda it: cls(*[f(it) for f in subs])
+        return lambda it: cls([f(it) for f in subs])
+    return next
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:

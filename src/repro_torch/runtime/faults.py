@@ -248,4 +248,5 @@ def wrap_step_faults(step_fn, batch_argnum: int = -1):
         args = list(args)
         args[batch_argnum] = poison_batch(args[batch_argnum], rule)
         return step_fn(*args)
+    wrapped.__wrapped__ = step_fn     # the step itself, unwrapped
     return wrapped

@@ -98,6 +98,12 @@ def _partition_spans(spans):
 
 
 def test_off_records_only_setup_and_trains_as_on():
+    # the partitioner's library loads once a process (a `setup.kernels`
+    # span, kept whether or not tracing is on): load it first, so that
+    # the spans below do not depend on which tests this process ran
+    from repro_torch.graph import partition
+    partition._native()
+    trace.reset()
     off, res_off = _fit(_spec(), on=False)
     spans = trace.spans()
     names = [s.name for s in spans]
@@ -241,6 +247,44 @@ def test_no_span_name_is_one_bench_trace_keys_on():
         assert not name.startswith("bench."), name
         assert not any(k in name for k in BENCH_KEYS), name
         assert f"`{name}`" in doc, f"{name} is not in docs/tracing.md"
+
+
+def test_graph_span_and_counter_names_obey_the_rule():
+    """The CUDA-graph step's spans and counters, which a CPU run never
+    records, by the same rule as the names a CPU run records."""
+    from repro_torch.core import step_graph
+    doc = (ROOT / "docs" / "tracing.md").read_text()
+    for name in step_graph.SPANS + step_graph.COUNTERS:
+        assert name.startswith("step.")
+        assert not any(k in name for k in BENCH_KEYS), name
+        assert f"`{name}`" in doc, f"{name} is not in docs/tracing.md"
+
+
+def test_a_cpu_step_runs_eagerly(fitted_spans):
+    names = [s.name for s in fitted_spans]
+    assert not set(names) & {"step.capture", "step.replay"}
+    steps = names.count("engine.step")
+    assert steps > 0
+    for name in ("step.forward", "step.backward", "step.optimizer"):
+        assert names.count(name) == steps, name
+
+
+@pytest.mark.parametrize("replays,captures,want", [
+    (0, 0, None), (4, 1, 100.0), (2, 0, 50.0), (0, 1, 0.0)])
+def test_step_graph_pct_on_synthetic_spans(replays, captures, want,
+                                           monkeypatch):
+    """100 × replays over engine.step spans; nothing from a program that
+    has neither graph span (the eager path, the benchmark's parent)."""
+    import types
+    made = ([types.SimpleNamespace(name="engine.step")] * 4
+            + [types.SimpleNamespace(name="step.forward")] * 4
+            + [types.SimpleNamespace(name="step.replay")] * replays
+            + [types.SimpleNamespace(name="step.capture")] * captures)
+    read = _reader("step_graph_pct")
+    monkeypatch.setattr(trace, "spans", lambda since_ns=None: made)
+    assert read(None) == want
+    monkeypatch.setattr(trace, "spans", lambda since_ns=None: [])
+    assert read(None) is None
 
 
 def test_engine_timers_read_the_spans_clock_pairs(monkeypatch):
